@@ -1,0 +1,82 @@
+"""Deterministic synthetic frame source (copy of ``SyntheticSource`` from
+``selkies_tpu/capture/synthetic.py``; the device-resident scroll source is
+not ported yet).
+
+Patterns model desktop-streaming workloads: static UI with a moving region
+(the common case damage gating exploits), scrolling text, and full-motion
+video-like noise (worst case for the entropy coder).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from .base import FrameSource
+
+
+class SyntheticSource(FrameSource):
+    PATTERNS = ("desktop", "scroll", "motion", "static", "noise")
+
+    def __init__(
+        self,
+        width: int,
+        height: int,
+        fps: float = 60.0,
+        pattern: str = "desktop",
+        seed: int = 0,
+    ) -> None:
+        super().__init__(width, height, fps)
+        if pattern not in self.PATTERNS:
+            raise ValueError(f"unknown pattern {pattern!r}")
+        self.pattern = pattern
+        self._t = 0
+        rng = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+        # background: smooth "wallpaper" plus window-like rectangles
+        bg = np.stack(
+            [
+                120 + 60 * np.sin(xx / 181.0) * np.cos(yy / 127.0),
+                110 + 60 * np.cos(xx / 149.0),
+                140 + 50 * np.sin(yy / 167.0),
+            ],
+            axis=-1,
+        )
+        for _ in range(6):  # window rectangles with 1px borders
+            x0, y0 = rng.integers(0, max(1, width - 80)), rng.integers(0, max(1, height - 60))
+            w, h = rng.integers(60, min(400, width)), rng.integers(40, min(300, height))
+            x1, y1 = min(width, x0 + w), min(height, y0 + h)
+            bg[y0:y1, x0:x1] = rng.integers(180, 250, size=3)
+            bg[y0:y1, x0:x0 + 2] = bg[y0:y1, x1 - 2:x1] = 60
+        self._bg = np.clip(bg, 0, 255).astype(np.uint8)
+        self._noise_rng = rng
+
+    def next_frame(self) -> Optional[np.ndarray]:
+        t = self._t
+        self._t += 1
+        h, w = self.height, self.width
+        if self.pattern == "static":
+            return self._bg.copy()
+        if self.pattern == "noise":
+            return self._noise_rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        if self.pattern == "scroll":
+            return np.roll(self._bg, shift=-(4 * t) % h, axis=0)
+        if self.pattern == "motion":
+            yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+            f = np.stack(
+                [
+                    128 + 100 * np.sin(xx / 97.0 + t * 0.31) * np.cos(yy / 53.0),
+                    128 + 100 * np.cos(xx / 71.0 + t * 0.23),
+                    128 + 100 * np.sin(yy / 89.0 + t * 0.17),
+                ],
+                axis=-1,
+            )
+            return np.clip(f, 0, 255).astype(np.uint8)
+        # "desktop": static background + one moving "cursor/window" block
+        f = self._bg.copy()
+        bw, bh = max(8, w // 12), max(8, h // 12)
+        x = int((np.sin(t * 0.13) * 0.45 + 0.5) * (w - bw))
+        y = int((np.cos(t * 0.11) * 0.45 + 0.5) * (h - bh))
+        f[y:y + bh, x:x + bw] = (230, 60, 60)
+        return f

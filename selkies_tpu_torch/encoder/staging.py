@@ -1,0 +1,144 @@
+"""Host-to-device staging ring (counterpart of ``StagingRing``/``StagingTicket``
+in ``selkies_tpu/encoder/h264_device.py``).
+
+The JAX ring donates device buffers so an upload can overlap the previous
+frame's encode. PyTorch has no donation; the port gets the same overlap
+from preallocated slots, each a pinned host buffer plus a device buffer of
+the frame's shape:
+
+* ``stage`` copies the host frame into a free slot's pinned buffer, starts a
+  ``non_blocking`` copy to the slot's device buffer on the caller's stream,
+  and records a CUDA event after it;
+* a slot is busy from ``stage`` until its ticket is released (the frame was
+  harvested), and it is written again only after its event has completed,
+  so the host never overwrites pinned memory a copy is still reading. The
+  device buffer needs no such guard: every read and write of it is queued
+  on the one pipeline stream, in order;
+* with every slot busy, ``stage`` falls back to a fresh, unmanaged upload
+  (counted in ``stalls_total``): correctness never depends on the caller
+  sizing the ring right, only the overlap does.
+
+On the CPU (``device="cpu"``, the tests) a slot is one host tensor and
+there are no events.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class StagingRing:
+    def __init__(self, depth: int = 2, device=None) -> None:
+        self.depth = max(2, int(depth))
+        self.device = torch.device(device) if device is not None \
+            else torch.device("cpu")
+        self._cuda = self.device.type == "cuda"
+        self._host: List[Optional[torch.Tensor]] = [None] * self.depth
+        self._dev: List[Optional[torch.Tensor]] = [None] * self.depth
+        self._events: List[Optional[torch.cuda.Event]] = [None] * self.depth
+        self._busy = [False] * self.depth
+        self._shape: Optional[Tuple[int, ...]] = None
+        self._next = 0
+        #: lane generation: tickets carry it so a ticket issued before a
+        #: shape change can never free the new lane's same-index slot
+        self._generation = 0
+        self.stalls_total = 0
+        self.staged_total = 0
+
+    @property
+    def in_use(self) -> int:
+        return sum(self._busy)
+
+    def _restart(self, shape) -> None:
+        self._shape = shape
+        self._host = [None] * self.depth
+        self._dev = [None] * self.depth
+        self._events = [None] * self.depth
+        self._busy = [False] * self.depth
+        self._next = 0
+        self._generation += 1
+
+    def stage(self, frame: np.ndarray, stream=None
+              ) -> "tuple[torch.Tensor, Optional[tuple]]":
+        """Stage one host uint8 frame; returns (device tensor, ticket).
+
+        ticket is None when the ring stalled (every slot still held) and a
+        fresh buffer was uploaded instead. Release the ticket with
+        :meth:`release` once the frame has been harvested."""
+        frame = np.ascontiguousarray(frame)
+        if tuple(frame.shape) != self._shape:
+            # geometry change: abandon the old slots and restart the lane
+            self._restart(tuple(frame.shape))
+        idx = self._next
+        s = None
+        if self._cuda:
+            s = stream if stream is not None else \
+                torch.cuda.current_stream(self.device)
+        if self._busy[idx]:
+            free = next((i for i in range(self.depth)
+                         if not self._busy[i]), None)
+            if free is None:
+                self.stalls_total += 1
+                if s is None:
+                    return torch.from_numpy(frame.copy()), None
+                with torch.cuda.stream(s):
+                    return torch.from_numpy(frame).to(self.device), None
+            idx = free
+        src = torch.from_numpy(frame)
+        if not self._cuda:
+            if self._dev[idx] is None:
+                self._dev[idx] = torch.empty(src.shape, dtype=src.dtype)
+            self._dev[idx].copy_(src)
+        else:
+            if self._host[idx] is None:
+                self._host[idx] = torch.empty(src.shape, dtype=src.dtype,
+                                              pin_memory=True)
+                self._dev[idx] = torch.empty(src.shape, dtype=src.dtype,
+                                             device=self.device)
+                self._events[idx] = torch.cuda.Event()
+            else:
+                # the previous upload from this pinned buffer must have
+                # landed before the host writes it again
+                self._events[idx].synchronize()
+            self._host[idx].copy_(src)
+            with torch.cuda.stream(s):
+                self._dev[idx].copy_(self._host[idx], non_blocking=True)
+                self._events[idx].record(s)
+        self._busy[idx] = True
+        self._next = (idx + 1) % self.depth
+        self.staged_total += 1
+        return self._dev[idx], (self._generation, idx)
+
+    def release(self, ticket: "Optional[tuple]") -> None:
+        """Mark a slot's contents consumed. Tickets from a retired lane
+        (issued before a shape change) are no-ops."""
+        if ticket is not None:
+            gen, idx = ticket
+            if gen == self._generation:
+                self._busy[idx] = False
+
+    def release_all(self) -> None:
+        """Teardown: a closed pipeline holds no live readers."""
+        self._busy = [False] * self.depth
+
+
+class StagingTicket:
+    """Refcounted handle on one staged slot: released after the last frame
+    that reads it has been harvested."""
+
+    __slots__ = ("_ring", "_ticket", "_refs")
+
+    def __init__(self, ring: StagingRing, ticket: "Optional[tuple]",
+                 refs: int = 1) -> None:
+        self._ring = ring
+        self._ticket = ticket
+        self._refs = refs
+
+    def release(self) -> None:
+        self._refs -= 1
+        if self._refs <= 0 and self._ticket is not None:
+            self._ring.release(self._ticket)
+            self._ticket = None

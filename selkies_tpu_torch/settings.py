@@ -1,0 +1,565 @@
+"""Declarative settings/flag system (the port's own copy of ``selkies_tpu/settings.py``).
+
+Capability parity with the reference's config subsystem
+(the reference ``selkies/settings.py:36-222``): a single declarative
+registry from which CLI flags, environment variables, the client-facing
+``server_settings`` schema, and server-side clamping of client requests are all
+derived. Precedence: CLI flag > ``SELKIES_<NAME>`` env > legacy env > default.
+
+Design differences from the reference (this is a new implementation):
+  * specs are typed dataclasses, not dicts;
+  * a ``Settings`` instance is an explicit object you construct (the module
+    also exposes a lazily-created process-wide singleton for convenience);
+  * values are normalized at parse time into typed Python values
+    (``BoolValue``/``RangeValue`` carry their lock state explicitly);
+  * TPU-encoder knobs (stripe height, device selection, precision) are
+    first-class settings.
+
+Client-visible setting *names* match the reference so the reference web
+client's settings UI works unchanged against this server.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import sys
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+
+# --------------------------------------------------------------------------
+# Typed values
+
+
+@dataclass(frozen=True)
+class BoolValue:
+    """A boolean setting value plus whether the client may change it."""
+
+    value: bool
+    locked: bool = False
+
+    def __bool__(self) -> bool:  # allow `if settings.audio_enabled:`
+        return self.value
+
+
+class EnumValue(str):
+    """An enum setting value that may carry a *restricted* allowed list.
+
+    Mirrors the reference's enum-override semantics
+    (reference ``selkies/settings.py:29-31``): overriding an enum with
+    ``SELKIES_ENCODER="jpeg,x264enc"`` makes the first item the default and
+    the full list the allowed options; a single value locks the choice.
+    Subclasses ``str`` so consumers keep using it as the plain value.
+    """
+
+    allowed: Tuple[str, ...] = ()
+
+    def __new__(cls, value: str, allowed: Sequence[str] = ()):
+        self = super().__new__(cls, value)
+        # frozen-style: set via object.__setattr__ for clarity of intent
+        object.__setattr__(self, "allowed", tuple(allowed))
+        return self
+
+    @property
+    def locked(self) -> bool:
+        return len(self.allowed) == 1
+
+
+@dataclass(frozen=True)
+class RangeValue:
+    """An allowed [lo, hi] range plus the default the client starts at.
+
+    A single-value range (lo == hi) locks the client UI, mirroring the
+    reference's convention (settings.py doc block lines 25-33).
+    """
+
+    lo: int
+    hi: int
+    default: int
+
+    @property
+    def locked(self) -> bool:
+        return self.lo == self.hi
+
+    def clamp(self, v: int) -> int:
+        return max(self.lo, min(self.hi, int(v)))
+
+
+# --------------------------------------------------------------------------
+# Specs
+
+
+@dataclass(frozen=True)
+class Spec:
+    """One declared setting. Subclasses define parsing per type."""
+
+    name: str
+    default: Any
+    help: str = ""
+    legacy_env: Optional[str] = None
+    # Names excluded from the client-facing schema (server-only knobs).
+    server_only: bool = False
+
+    @property
+    def env_var(self) -> str:
+        return "SELKIES_" + self.name.upper()
+
+    @property
+    def cli_flag(self) -> str:
+        return "--" + self.name.replace("_", "-")
+
+    kind: str = field(default="str", init=False)
+
+    def parse(self, raw: str) -> Any:
+        return raw
+
+    def normalize_default(self) -> Any:
+        return self.default
+
+
+@dataclass(frozen=True)
+class StrSpec(Spec):
+    kind: str = field(default="str", init=False)
+
+
+@dataclass(frozen=True)
+class IntSpec(Spec):
+    kind: str = field(default="int", init=False)
+
+    def parse(self, raw: str) -> int:
+        return int(raw)
+
+
+@dataclass(frozen=True)
+class BoolSpec(Spec):
+    kind: str = field(default="bool", init=False)
+
+    def parse(self, raw: str) -> BoolValue:
+        locked = False
+        text = raw.strip()
+        if text.lower().endswith("|locked"):
+            locked = True
+            text = text[: -len("|locked")]
+        return BoolValue(text.strip().lower() in ("true", "1", "yes", "on"), locked)
+
+    def normalize_default(self) -> BoolValue:
+        d = self.default
+        return d if isinstance(d, BoolValue) else BoolValue(bool(d))
+
+
+@dataclass(frozen=True)
+class EnumSpec(Spec):
+    allowed: Tuple[str, ...] = ()
+    kind: str = field(default="enum", init=False)
+
+    def parse(self, raw: str) -> EnumValue:
+        """A comma list restricts the allowed options (first item becomes
+        the default); a single value locks the choice — the reference's
+        documented override semantics (settings.py:29-31)."""
+        items = tuple(p.strip() for p in raw.split(",") if p.strip())
+        bad = [p for p in items if p not in self.allowed]
+        if not items or bad:
+            raise ValueError(
+                f"{self.name}: {bad or raw!r} not in allowed set "
+                f"{list(self.allowed)}")
+        return EnumValue(items[0], items)
+
+    def normalize_default(self) -> EnumValue:
+        return EnumValue(str(self.default), self.allowed)
+
+
+@dataclass(frozen=True)
+class ListSpec(Spec):
+    """Comma-separated subset of `allowed`; '' or 'none' means empty."""
+
+    allowed: Tuple[str, ...] = ()
+    kind: str = field(default="list", init=False)
+
+    def parse(self, raw: str) -> Tuple[str, ...]:
+        text = raw.strip().lower()
+        if text in ("", "none"):
+            return ()
+        items = tuple(p.strip() for p in text.split(",") if p.strip())
+        bad = [p for p in items if p not in self.allowed]
+        if bad:
+            raise ValueError(f"{self.name}: {bad} not in allowed set {list(self.allowed)}")
+        return items
+
+    def normalize_default(self) -> Tuple[str, ...]:
+        if isinstance(self.default, str):
+            return self.parse(self.default)
+        return tuple(self.default)
+
+
+_RANGE_RE = re.compile(r"^\s*(\d+)\s*(?:-\s*(\d+)\s*)?$")
+
+
+@dataclass(frozen=True)
+class RangeSpec(Spec):
+    default_value: int = 0
+    kind: str = field(default="range", init=False)
+
+    def parse(self, raw: str) -> RangeValue:
+        m = _RANGE_RE.match(raw)
+        if not m:
+            raise ValueError(f"{self.name}: bad range {raw!r} (want 'N' or 'LO-HI')")
+        lo = int(m.group(1))
+        hi = int(m.group(2)) if m.group(2) else lo
+        if hi < lo:
+            lo, hi = hi, lo
+        return RangeValue(lo, hi, max(lo, min(hi, self.default_value)))
+
+    def normalize_default(self) -> RangeValue:
+        if isinstance(self.default, RangeValue):
+            return self.default
+        return self.parse(str(self.default))
+
+
+# --------------------------------------------------------------------------
+# Registry — client-visible names match the reference server's schema
+# (reference ``selkies/settings.py:36-108``) so the reference web
+# client can drive this server; TPU-specific entries are new.
+
+SETTING_DEFINITIONS: List[Spec] = [
+    # Core feature toggles
+    BoolSpec("audio_enabled", True, "Enable server-to-client audio streaming."),
+    BoolSpec("microphone_enabled", True, "Enable client-to-server microphone forwarding."),
+    BoolSpec("gamepad_enabled", True, "Enable gamepad support."),
+    BoolSpec("clipboard_enabled", True, "Enable clipboard synchronization."),
+    BoolSpec("command_enabled", True, "Enable command websocket messages."),
+    ListSpec("file_transfers", "upload,download", "Allowed file transfer directions.",
+             allowed=("upload", "download")),
+
+    # Video / encoder
+    EnumSpec("encoder", "jpeg", "Default video encoder profile.",
+             allowed=("x264enc", "x264enc-striped", "jpeg")),
+    RangeSpec("framerate", "8-120", "Allowed framerate range.", default_value=60),
+    RangeSpec("h264_crf", "5-50", "Allowed H.264 CRF range.", default_value=25),
+    RangeSpec("jpeg_quality", "1-100", "Allowed JPEG quality range.", default_value=40),
+    BoolSpec("h264_fullcolor", False, "Full-range color for H.264 profiles."),
+    BoolSpec("h264_streaming_mode", False, "H.264 streaming mode."),
+    BoolSpec("use_cpu", False, "Force CPU (non-TPU) encode path."),
+    BoolSpec("use_paint_over_quality", True, "High-quality paint-over for static scenes."),
+    RangeSpec("paint_over_jpeg_quality", "1-100", "JPEG paint-over quality.", default_value=90),
+    RangeSpec("h264_paintover_crf", "5-50", "H.264 paint-over CRF.", default_value=18),
+    RangeSpec("h264_paintover_burst_frames", "1-30", "Paint-over burst frames.", default_value=5),
+    BoolSpec("second_screen", True, "Enable a second monitor/display."),
+    EnumSpec("second_screen_position", "right",
+             "Secondary display placement relative to the primary.",
+             allowed=("right", "left", "up", "down")),
+
+    # Audio
+    EnumSpec("audio_bitrate", "320000", "Default audio bitrate.",
+             allowed=("64000", "128000", "265000", "320000")),
+
+    # Forward error correction (WebRTC mode; reference
+    # legacy/gstwebrtc_app.py video_packetloss_percent -> ulpfec)
+    IntSpec("video_packetloss_percent", 0,
+            "Video ULP/RED FEC overhead percent (0 disables)."),
+
+    # Display / resolution
+    BoolSpec("is_manual_resolution_mode", False, "Lock resolution to manual width/height."),
+    IntSpec("manual_width", 0, "Fixed width (forces manual resolution mode)."),
+    IntSpec("manual_height", 0, "Fixed height (forces manual resolution mode)."),
+    EnumSpec("scaling_dpi", "96", "UI scaling DPI.",
+             allowed=("96", "120", "144", "168", "192", "216", "240", "264", "288")),
+
+    # Input / client behavior
+    BoolSpec("enable_binary_clipboard", False, "Allow binary clipboard payloads."),
+    BoolSpec("use_browser_cursors", False, "Use browser CSS cursors."),
+    BoolSpec("use_css_scaling", False, "CSS-stretch a lower client resolution."),
+
+    # UI visibility
+    StrSpec("ui_title", "Selkies", "Sidebar title."),
+    BoolSpec("ui_show_logo", True, "Show logo."),
+    BoolSpec("ui_show_core_buttons", True, "Show core component buttons."),
+    BoolSpec("ui_show_sidebar", True, "Show sidebar."),
+    BoolSpec("ui_sidebar_show_video_settings", True, "Show video settings."),
+    BoolSpec("ui_sidebar_show_screen_settings", True, "Show screen settings."),
+    BoolSpec("ui_sidebar_show_audio_settings", True, "Show audio settings."),
+    BoolSpec("ui_sidebar_show_stats", True, "Show stats."),
+    BoolSpec("ui_sidebar_show_clipboard", True, "Show clipboard."),
+    BoolSpec("ui_sidebar_show_files", True, "Show file transfer."),
+    BoolSpec("ui_sidebar_show_apps", True, "Show applications."),
+    BoolSpec("ui_sidebar_show_sharing", True, "Show sharing."),
+    BoolSpec("ui_sidebar_show_gamepads", True, "Show gamepads."),
+    BoolSpec("ui_sidebar_show_fullscreen", True, "Show fullscreen button."),
+    BoolSpec("ui_sidebar_show_gaming_mode", True, "Show gaming mode button."),
+    BoolSpec("ui_sidebar_show_trackpad", True, "Show virtual trackpad button."),
+    BoolSpec("ui_sidebar_show_keyboard_button", True, "Show on-screen keyboard button."),
+    BoolSpec("ui_sidebar_show_soft_buttons", True, "Show soft buttons."),
+
+    # Server / operational (server-only: excluded from client schema)
+    IntSpec("port", 8082, "Data websocket server port.",
+            legacy_env="CUSTOM_WS_PORT", server_only=True),
+    StrSpec("dri_node", "", "Unused on TPU; kept for CLI compat.", server_only=True),
+    StrSpec("audio_device_name", "output.monitor", "Audio capture device.", server_only=True),
+    StrSpec("watermark_path", "", "Watermark PNG path.",
+            legacy_env="WATERMARK_PNG", server_only=True),
+    IntSpec("watermark_location", -1, "Watermark location enum (0-6).",
+            legacy_env="WATERMARK_LOCATION"),
+    BoolSpec("debug", False, "Debug logging.", server_only=True),
+    IntSpec("max_upload_mb", 4096, "Absolute per-file upload cap in MiB "
+            "(enforced regardless of the client-declared size).",
+            server_only=True),
+    IntSpec("web_port", 8080, "HTTP port for the web client + signaling "
+            "(reference signalling_web.py default).", server_only=True),
+    IntSpec("metrics_port", 8000, "Prometheus metrics port (0 disables; "
+            "reference legacy/metrics.py default). Also serves /healthz, "
+            "/debug/trace, and (opt-in) /debug/jax-trace "
+            "(docs/observability.md).", server_only=True),
+    BoolSpec("jax_trace_enabled", False, "Allow on-demand jax.profiler "
+             "captures via /debug/jax-trace on the metrics port "
+             "(writes profile files to a temp dir; off by default).",
+             server_only=True),
+    StrSpec("turn_host", "", "TURN server hostname for /turn credentials.",
+            legacy_env="TURN_HOST", server_only=True),
+    StrSpec("turn_port", "3478", "TURN server port.",
+            legacy_env="TURN_PORT", server_only=True),
+    StrSpec("turn_shared_secret", "", "coturn shared secret for HMAC "
+            "credentials.", legacy_env="TURN_SHARED_SECRET", server_only=True),
+
+    # Sharing
+    BoolSpec("enable_sharing", True, "Master sharing toggle."),
+    BoolSpec("enable_collab", True, "Collaborative sharing link."),
+    BoolSpec("enable_shared", True, "View-only sharing links."),
+    BoolSpec("enable_player2", True, "Gamepad player 2 link."),
+    BoolSpec("enable_player3", True, "Gamepad player 3 link."),
+    BoolSpec("enable_player4", True, "Gamepad player 4 link."),
+
+    # --- Robustness / supervision (server-only; docs/robustness.md) ---
+    StrSpec("tpu_faults", "", "Comma list of fault points to arm for chaos "
+            "runs and tests (grammar: name[*count][=arg]; see "
+            "docs/robustness.md).", server_only=True),
+    IntSpec("supervisor_max_restarts", 6, "Failure/watchdog restarts allowed "
+            "per display loop within the restart window before the display "
+            "is marked failed.", server_only=True),
+    IntSpec("supervisor_restart_window_s", 60, "Sliding window (seconds) the "
+            "supervisor restart budget is counted over.", server_only=True),
+    IntSpec("watchdog_frames", 600, "Frame intervals without capture-loop "
+            "progress before the watchdog cancels and restarts the pipeline "
+            "(0 disables the watchdog).", server_only=True),
+    IntSpec("ladder_fail_threshold", 3, "Consecutive encoder failures before "
+            "the degradation ladder steps down a rung "
+            "(device -> host -> jpeg).", server_only=True),
+    IntSpec("ladder_probe_ms", 15000, "Clean-run milliseconds at a degraded "
+            "rung before the ladder probes back up one rung.",
+            server_only=True),
+
+    # --- Edge hardening / admission control (server-only; docs/hardening.md)
+    IntSpec("max_clients", 32, "Maximum concurrent websocket clients; the "
+            "next connection is rejected with KILL server_full "
+            "(0 = unlimited).", server_only=True),
+    IntSpec("max_displays", 4, "Maximum concurrent display pipelines; a "
+            "SETTINGS handshake for a further display is rejected with "
+            "KILL server_full (0 = unlimited).", server_only=True),
+    IntSpec("protocol_error_budget", 25, "Per-connection protocol-error "
+            "budget (token bucket, slow refill); exhausting it sends "
+            "KILL protocol_abuse and closes that socket.", server_only=True),
+    StrSpec("rate_limits", "", "Per-class rate-limit overrides, grammar "
+            "class=rate[:burst],... over classes input/control/settings/"
+            "resize/upload/mic (empty = built-in defaults; see "
+            "docs/hardening.md).", server_only=True),
+    IntSpec("resize_debounce_ms", 200, "Debounce window for display "
+            "reconfiguration: resize/SETTINGS churn inside the window "
+            "coalesces into one stop-the-world reconfigure.",
+            server_only=True),
+    IntSpec("max_send_queue", 240, "Per-client bounded send-queue depth for "
+            "media messages (drop-oldest-video; control is never dropped).",
+            server_only=True),
+    IntSpec("slow_client_evict_s", 4, "Seconds of sustained send-queue "
+            "overflow before a slow consumer is evicted with "
+            "KILL slow_consumer.", server_only=True),
+    IntSpec("max_mic_chunk_kb", 256, "Largest accepted microphone PCM chunk "
+            "in KiB; oversize chunks are dropped before reaching the audio "
+            "pipeline.", server_only=True),
+    IntSpec("max_ws_message_mb", 32, "Largest accepted websocket message in "
+            "MiB (transport-level cap; 0 = unlimited, reference behavior).",
+            server_only=True),
+    IntSpec("shed_drop_threshold", 0, "Load shedding: encoder frames "
+            "dropped per stats tick that count as sustained overload; two "
+            "consecutive overloaded ticks reject NEW connections with "
+            "KILL server_full until the drop rate recovers (0 = disabled).",
+            server_only=True),
+
+    # --- Session scheduler / slot fault domains (server-only;
+    # --- docs/scaling.md) ---
+    IntSpec("mesh_max_lanes", 4, "Batch lanes per mesh geometry bucket: "
+            "each lane is one compiled SPMD encoder whose slots admit "
+            "sessions dynamically; lanes are built on demand up to this "
+            "cap and retired when drained.", server_only=True),
+    IntSpec("admission_queue_ms", 250, "How long a display join may wait "
+            "in the admission queue for a scheduler slot to free before "
+            "it is shed with KILL server_full (0 = shed immediately).",
+            server_only=True),
+    IntSpec("slot_quarantine_errors", 3, "Per-slot error EWMA threshold: "
+            "roughly this many attributed errors within the health window "
+            "quarantines the slot and live-migrates its session to a "
+            "healthy lane.", server_only=True),
+    IntSpec("slot_health_window_s", 30, "Half-life (seconds) of the "
+            "per-slot error score: a slot's past errors decay over this "
+            "window, so only sustained faulting trips quarantine.",
+            server_only=True),
+    BoolSpec("mesh_overflow_solo", False, "When the scheduler is out of "
+             "lane capacity, serve the overflow display with a solo "
+             "encoder pipeline (pre-scheduler behavior) instead of "
+             "queue/shed admission verdicts.", server_only=True),
+    IntSpec("sfe_min_pixels", 8294400, "Split-frame encoding threshold: a "
+            "display whose width x height crosses this claims a "
+            "stripe-sharded SFE lane spanning several chips (one frame's "
+            "stripe bands encoded in parallel over the ICI mesh) instead "
+            "of a one-chip session slot. Default 3840x2160; 0 disables "
+            "SFE.", server_only=True),
+    IntSpec("sfe_shards", 0, "Chips one SFE frame is sharded across "
+            "(stripe mesh axis). 0 = auto: every chip of the tpu_mesh "
+            "slice; clamped to the largest count that tiles the slice.",
+            server_only=True),
+
+    # --- TPU-native additions (server-only) ---
+    IntSpec("tpu_stripe_height", 64, "Encoder stripe height in rows (multiple of 16).",
+            server_only=True),
+    EnumSpec("tpu_precision", "float32", "Transform precision on device.",
+             allowed=("float32", "bfloat16"), server_only=True),
+    IntSpec("tpu_sessions_per_chip", 1, "Frame-batched sessions per chip.", server_only=True),
+    StrSpec("tpu_mesh", "", "Device mesh spec, e.g. 'session:8' (empty = single chip).",
+            server_only=True),
+    BoolSpec("tpu_interpret", False, "Run Pallas kernels in interpreter mode.",
+             server_only=True),
+]
+
+_SPECS_BY_NAME: Dict[str, Spec] = {s.name: s for s in SETTING_DEFINITIONS}
+
+
+# --------------------------------------------------------------------------
+# Settings object
+
+
+class Settings:
+    """Resolved settings: one attribute per spec name.
+
+    Resolution order per setting: CLI > SELKIES_<NAME> env > legacy env >
+    declared default (reference precedence, settings.py:11-18).
+    """
+
+    def __init__(
+        self,
+        argv: Optional[Sequence[str]] = None,
+        env: Optional[Dict[str, str]] = None,
+    ) -> None:
+        env = dict(os.environ if env is None else env)
+        parser = argparse.ArgumentParser(prog="selkies-tpu-torch", add_help=True)
+        for spec in SETTING_DEFINITIONS:
+            parser.add_argument(spec.cli_flag, dest=spec.name, type=str,
+                                default=None, help=spec.help)
+        if argv is None:
+            argv = sys.argv[1:]
+        ns, _unknown = parser.parse_known_args(list(argv))
+
+        self._values: Dict[str, Any] = {}
+        for spec in SETTING_DEFINITIONS:
+            raw = getattr(ns, spec.name)
+            if raw is None:
+                raw = env.get(spec.env_var)
+            if raw is None and spec.legacy_env:
+                raw = env.get(spec.legacy_env)
+            if raw is None:
+                self._values[spec.name] = spec.normalize_default()
+            else:
+                self._values[spec.name] = spec.parse(raw)
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self._values[name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+    def get(self, name: str) -> Any:
+        return self._values[name]
+
+    def set(self, name: str, value: Any) -> None:
+        if name not in _SPECS_BY_NAME:
+            raise KeyError(name)
+        self._values[name] = value
+
+    # -- client-facing schema ------------------------------------------------
+
+    def schema_payload(self) -> Dict[str, Any]:
+        """The ``server_settings`` JSON body pushed to clients at connect.
+
+        Shape matches the reference handshake (selkies.py:1524-1545) so the
+        reference client's settings UI binds to it unchanged.
+        """
+        out: Dict[str, Any] = {"type": "server_settings", "settings": {}}
+        for spec in SETTING_DEFINITIONS:
+            if spec.server_only:
+                continue
+            v = self._values[spec.name]
+            entry: Dict[str, Any]
+            if isinstance(spec, BoolSpec):
+                entry = {"value": v.value, "locked": v.locked}
+            elif isinstance(spec, RangeSpec):
+                entry = {"value": v.default, "min": v.lo, "max": v.hi,
+                         "default": v.default}
+            elif isinstance(spec, EnumSpec):
+                allowed = v.allowed if isinstance(v, EnumValue) and v.allowed \
+                    else spec.allowed
+                entry = {"value": str(v), "allowed": list(allowed)}
+            elif isinstance(spec, ListSpec):
+                entry = {"value": list(v) if isinstance(v, tuple) else v,
+                         "allowed": list(spec.allowed)}
+            else:
+                entry = {"value": v}
+            out["settings"][spec.name] = entry
+        return out
+
+    # -- clamping ------------------------------------------------------------
+
+    def clamp_client_value(self, name: str, value: Any) -> Any:
+        """Sanitize a client-requested value against server limits.
+
+        Mirrors the behavior of the reference's _apply_client_settings clamp
+        (selkies.py:1322-1361): ranges clamp, enums/lists reject unknown
+        values (falling back to the server value), locked bools are ignored.
+        """
+        spec = _SPECS_BY_NAME.get(name)
+        if spec is None:
+            raise KeyError(name)
+        current = self._values[name]
+        if isinstance(spec, RangeSpec):
+            return current.clamp(int(value))
+        if isinstance(spec, BoolSpec):
+            if current.locked:
+                return current.value
+            if isinstance(value, str):
+                return value.strip().lower() in ("true", "1", "yes", "on")
+            return bool(value)
+        if isinstance(spec, EnumSpec):
+            allowed = current.allowed if isinstance(current, EnumValue) \
+                and current.allowed else spec.allowed
+            return value if value in allowed else (
+                current if isinstance(current, str) else spec.normalize_default())
+        if isinstance(spec, ListSpec):
+            items = value if isinstance(value, (list, tuple)) else str(value).split(",")
+            return tuple(i for i in items if i in spec.allowed)
+        if isinstance(spec, IntSpec):
+            return int(value)
+        return str(value)
+
+
+_singleton: Optional[Settings] = None
+
+
+def get_settings(argv: Optional[Sequence[str]] = None) -> Settings:
+    """Process-wide settings singleton (created on first call)."""
+    global _singleton
+    if _singleton is None:
+        _singleton = Settings(argv=argv)
+    return _singleton
+
+
+def reset_settings() -> None:
+    """Testing hook: drop the singleton."""
+    global _singleton
+    _singleton = None

@@ -1,0 +1,108 @@
+"""The port stands alone: no jax, no selkies_tpu, and no quiet CPU fallback."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "selkies_tpu_torch"
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) >= 20
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "selkies_tpu" or name.startswith("selkies_tpu."))
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_no_module_imports_jax_or_the_jax_package(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module and _forbidden(node.module):
+            bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") \
+                in ("import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and _forbidden(node.args[0].value):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_imports_with_jax_and_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['selkies_tpu'] = None\n"
+        "import selkies_tpu_torch\n"
+        "import selkies_tpu_torch.__main__\n"
+        "import selkies_tpu_torch.server.main\n"
+        "import selkies_tpu_torch.server.data_server\n"
+        "import selkies_tpu_torch.encoder.pipeline\n"
+        "import selkies_tpu_torch.encoder.state\n"
+        "import selkies_tpu_torch.ops.dct_quant\n"
+        "from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder\n"
+        "import numpy as np\n"
+        "enc = JpegStripeEncoder(32, 16, stripe_height=16, device='cpu')\n"
+        "assert len(enc.encode_frame(np.zeros((16, 32, 3), np.uint8))) == 1\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'selkies_tpu.'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('isolated')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
+
+
+def test_encoder_without_card_or_device_raises(monkeypatch):
+    from selkies_tpu_torch import resolve_device
+    from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        JpegStripeEncoder(64, 64)
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_server_entry_point_without_card_raises(monkeypatch):
+    import asyncio
+
+    from selkies_tpu_torch.server import main as tmain
+    from selkies_tpu_torch.settings import Settings
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        asyncio.run(tmain._amain(Settings(argv=[], env={"SELKIES_PORT": "0"})))
+
+
+def test_kernel_build_is_lazy_and_sources_ship():
+    """Importing the port never builds or loads a kernel (no nvcc here);
+    the CUDA sources sit in the package for the build at first use."""
+    code = ("import selkies_tpu_torch.server.main\n"
+            "import selkies_tpu_torch.ops.dct_quant\n"
+            "from selkies_tpu_torch import _build\n"
+            "assert _build._loaded == {} and _build.ptxas_report == {}\n"
+            "print(_build.kernel_dir())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("build/torch_kernels")
+    assert (PORT / "csrc" / "dct_quant.cu").is_file()
