@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
-It builds the port's CUDA kernels from the checkout's sources, holds each
-kernel against its plain PyTorch version at the 1080p main-path shapes,
-drives the served JPEG-stripe path at 1920x1080 (the pipelined encoder
-behind the async driver, then the data server's ws_handler with an
-in-process client), shows through the launch counters that the path ran
-the kernels, and checks the output by the repo's own means: after each
-timed encoder run, every stripe scan it produced must equal the host
-coder (entropy_py) on that frame's own coefficients fetched from the
-card; a 1080p run whose noise stripes overflow the device packer is
-host-coded and checked the same way; and a small frame sequence encoded on the card equals the same
-sequence encoded on the CPU, whose bytes the CPU tests hold equal to the
-JAX package's.
+It builds the port's CUDA kernels (and the H.264 profile's g++ host coder)
+from the checkout's sources, holds each kernel against its plain PyTorch
+version at the 1080p main-path shapes, and drives both served profiles at
+1920x1080: the JPEG-stripe profile (pipelined encoder behind the async
+driver, then the data server's ws_handler with an in-process client) and
+the x264enc-striped H.264 profile (the same two ways). Launch counters,
+set to 0 before each profile's path and read after it, show that the path
+ran its kernel. Each timed encoder run is made twice: once keeping
+nothing (its rates are the ones reported) and once keeping what the check
+after its window needs (its rates are reported beside them). The output
+is checked by the repo's own means:
 
-It prints one JSON object per line (setup, kernels, encoder, server), the
-card's name and power limit as ``nvidia-smi`` gives them, and last
+* JPEG: every stripe scan of each checked run equals the host coder
+  (entropy_py) on that frame's coefficients fetched from the card; a 1080p
+  run with overflowed (host-coded) noise stripes is checked the same way;
+  a small sequence encoded on the card equals it encoded on the CPU;
+* H.264: on every CHECK_EVERY-th P frame of each checked run, every emitted
+  stripe's device-CAVLC Annex-B equals the native coder
+  (encode_picture_nals_np) on that stripe's exact levels, kept on the
+  card; the entropy error count stays 0; and a 1920x256 sequence (IDR,
+  scrolled P frames, paint-over, a keyframe request) encoded on the card
+  equals it encoded on the CPU, whose bytes the CPU tests hold equal to
+  the JAX package's.
+
+It prints one JSON object per line (setup, kernels, encoder, h264_encoder,
+server, server_h264, h264_cross, profile, profile_h264), the card's name
+and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result. It imports neither jax nor selkies_tpu, and
@@ -42,11 +54,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: non-tensor-core FLOP/s, for the bound of a kernel's work
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: INT32 lanes of the H100 SXM: 132 SMs x 64; the integer peak is this
+#: times the SM clock nvidia-smi reports as the card's maximum. The byte
+#: SIMD instructions (VABSDIFF4, IDP.4A) each do four byte operations per
+#: lane; the bound counts them at this same full rate, the most the card
+#: could issue
+INT32_LANES = 132 * 64
 
 W, H = 1920, 1080
 STRIPE = 64
-#: frames in each timed encoder run
+#: frames in each timed encoder run (JPEG, H.264)
 N_FRAMES = 120
+N_H264 = 90
+#: every CHECK_EVERY-th H.264 P frame of a timed run is checked stripe by
+#: stripe against the native coder on its exact levels
+CHECK_EVERY = 5
 #: where the port runs (a CPU rehearsal of the phases may set "cpu")
 DEVICE = "cuda"
 
@@ -102,32 +124,65 @@ def device_ms(fn, reps: int):
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
 
 
+#: what each _settle call found and freed, by the phase it ran before
+SETTLED = {}
+
+
+def _settle(before: str) -> None:
+    """Free what the earlier phases left before a timed one: Python garbage
+    in reference cycles (torch.profiler's event trees) and the blocks the
+    CUDA caching allocator keeps for each encoder's stream, which no later
+    encoder (on a stream of its own) reuses. Left in place, both lowered
+    the encode rates of every later phase."""
+    import gc
+
+    import torch
+
+    reserved = torch.cuda.memory_reserved() if DEVICE == "cuda" else 0
+    SETTLED[before] = {"gc_freed": gc.collect(),
+                       "reserved_mb_before": reserved >> 20}
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phases
 
 
 def phase_setup():
+    """Build every kernel of the checkout (one nvcc per source, all at
+    once) and the H.264 host coder (g++); print the card's name and power
+    limit. Returns the card's maximum SM clock in Hz (for integer peaks)."""
     import torch
 
     from selkies_tpu_torch import _build
+    from selkies_tpu_torch.native import cavlc_lib
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    smi = smi[torch.cuda.current_device()] if smi else "unknown"
-    print(smi, flush=True)
+    def smi(query):
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60).stdout.strip()
+        lines = out.splitlines()
+        return lines[torch.cuda.current_device()] if lines else "unknown"
+
+    card = smi("name,power.limit")
+    print(card, flush=True)
+    clock_mhz = float(smi("clocks.max.sm").split()[0])
     stems = sorted(p[:-3] for p in os.listdir(_build.CSRC) if p.endswith(".cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(stems)) as pool:     # one nvcc per source
+    with ThreadPoolExecutor(len(stems) + 1) as pool:  # one nvcc per source
+        host = pool.submit(cavlc_lib)
         list(pool.map(_build.load_library, stems))
+        host.result()
     build_s = time.perf_counter() - t0
-    emit({"phase": "setup", "gpu": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "kernels_built": stems,
+    emit({"phase": "setup", "gpu": card, "max_sm_clock_mhz": clock_mhz,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "kernels_built": stems, "host_coder_built": "native/cavlc.cpp",
           "build_s": round(build_s, 3),
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for k, v in _build.ptxas_report.items()}})
-    return smi
+    return clock_mhz * 1e6
 
 
 def _main_path_planes(frame_np, enc):
@@ -243,34 +298,49 @@ def phase_kernel_check():
     }
 
 
-def _recording(base):
-    """Wrap base._scans_from_packed to keep, for every frame it codes, the
-    scans it returned, the frame's emit and overflow flags and its
-    coefficient tensors on the card; _check_recorded checks them."""
+def _recording(base, n_frames: int):
+    """Wrap base._scans_from_packed to keep, for each of up to ``n_frames``
+    frames it codes, the scans it returned, the frame's emit and overflow
+    flags and a copy of its coefficient planes on the card, in buffers
+    allocated here, before any timed window: keeping them allocates
+    nothing inside it. _check_recorded checks them."""
+    import torch
+
+    shapes = [(base.pad_h // 8, base.pad_w // 8, 64)] \
+        + [(base.pad_h // 16, base.pad_w // 16, 64)] * 2
+    with base.stream_context():
+        planes = [torch.empty((n_frames,) + shape, dtype=torch.int16,
+                              device=base.device) for shape in shapes]
     orig = base._scans_from_packed
     kept = []
 
     def wrapped(words_np, base_np, nbytes_np, ovf_np, emit, yq, cbq, crq):
         scans = orig(words_np, base_np, nbytes_np, ovf_np, emit, yq, cbq, crq)
-        kept.append((scans, emit.copy(), ovf_np.copy(), yq, cbq, crq))
+        slot = len(kept)
+        check(slot < n_frames, f"more than {n_frames} frames coded")
+        with base.stream_context():
+            for buf, q in zip(planes, (yq, cbq, crq)):
+                buf[slot].copy_(q)
+        kept.append((scans, emit.copy(), ovf_np.copy(), slot))
         return scans
 
     base._scans_from_packed = wrapped
-    return kept
+    return kept, planes
 
 
-def _check_recorded(base, kept) -> dict:
+def _check_recorded(base, recorded) -> dict:
     """Every kept stripe scan must equal entropy_py on that frame's own
     coefficients, fetched from the card."""
     from selkies_tpu_torch.encoder import entropy_py
 
+    kept, planes = recorded
     yrows, crows = base.stripe_h // 8, base.stripe_h // 16
     tally = {"frames": len(kept), "stripes": 0, "host_coded": 0,
              "mismatch": 0}
     t0 = time.perf_counter()
-    for scans, emit, ovf, yq, cbq, crq in kept:
+    for scans, emit, ovf, slot in kept:
         with base.stream_context():
-            y, cb, cr = (t.cpu().numpy() for t in (yq, cbq, crq))
+            y, cb, cr = (buf[slot].cpu().numpy() for buf in planes)
         for s in np.flatnonzero(emit):
             want = entropy_py.encode_scan_420(
                 y[s * yrows:(s + 1) * yrows], cb[s * crows:(s + 1) * crows],
@@ -300,7 +370,7 @@ def _overflow_run():
 
     desk = SyntheticSource(W, H, pattern="desktop", seed=4)
     base, pipe, drv = _pipeline()
-    kept = _recording(base)
+    kept = _recording(base, 2)
     for seed in (8, 9):
         f = desk.next_frame().copy()
         noise = SyntheticSource(W, H, pattern="noise", seed=seed).next_frame()
@@ -325,28 +395,42 @@ def _overflow_run():
             "check_s": tally["check_s"]}, pipe._seq
 
 
-def _reserve(base, n_frames: int) -> None:
-    """Allocate, then free, ``n_frames`` frames' coefficient planes on the
-    encoder's stream. The caching allocator keeps the blocks, so a timed
-    run that keeps every frame's planes allocates no new device memory."""
-    import torch
+def _timed_run(make_pipeline, frames, n_warm: int, record=None):
+    """A pipeline from ``make_pipeline`` behind its async driver: warm it
+    with ``frames[:n_warm]``, then time the rest (waiting when the queue is
+    full, never dropping). ``record(base)``, called before the warm-up,
+    installs what keeps frames for a check after the window."""
+    base, pipe, drv = make_pipeline()
+    kept = record(base) if record is not None else None
+    for f in frames[:n_warm]:
+        drv.try_submit(f)
+    drv.flush()
+    t0 = time.perf_counter()
+    results = []
+    for f in frames[n_warm:]:
+        while drv.try_submit(f) is None:
+            time.sleep(0.0005)
+        results += drv.poll()
+    results += drv.flush()
+    wall = time.perf_counter() - t0
+    st = drv.stats()
+    drv.close()
+    drv.join(30.0)
+    return base, pipe, kept, results, wall, st
 
-    if base.stream is None:
-        return
-    shapes = [(base.pad_h // 8, base.pad_w // 8, 64)] \
-        + [(base.pad_h // 16, base.pad_w // 16, 64)] * 2
-    with base.stream_context():
-        held = [torch.empty(shape, dtype=torch.int16, device=base.device)
-                for _ in range(n_frames) for shape in shapes]
-    del held
+
+def _rates(n: int, wall: float, st: dict) -> dict:
+    return {"fps": n / wall, "dispatch_p50_ms": st["dispatch_p50_ms"],
+            "fetch_wait_p50_ms": st["fetch_wait_p50_ms"]}
 
 
 def phase_encoder():
     """1920x1080 through PipelinedJpegEncoder + AsyncEncodeDriver over the
-    desktop and scroll patterns, N_FRAMES timed frames each. The timed run
-    keeps every frame's scans and coefficient planes (references into
-    memory reserved beforehand); after the window, every stripe scan must
-    equal entropy_py on its frame's own coefficients fetched from the card.
+    desktop and scroll patterns, N_FRAMES timed frames each, twice: a run
+    that keeps nothing gives the rates; a checked run keeps every frame's
+    scans and a copy of its coefficient planes (in buffers allocated
+    before it), and after its window every stripe scan must equal
+    entropy_py on its frame's own coefficients fetched from the card.
     Last, a short run whose noise stripes are host-coded, all checked."""
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
@@ -356,57 +440,52 @@ def phase_encoder():
     for pattern in ("desktop", "scroll"):
         src = SyntheticSource(W, H, pattern=pattern, seed=2)
         frames = [src.next_frame() for _ in range(N_FRAMES)]
-        base, pipe, drv = _pipeline()
-        kept = _recording(base)
-        drv.try_submit(frames[0])            # first step builds scratch
-        drv.flush()
-        _reserve(base, N_FRAMES)
+        frames = frames[:1] + frames         # the first step builds scratch
         launches0 = dct8_quant_zigzag.launches
-        t0 = time.perf_counter()
-        results = []
-        for f in frames:
-            while drv.try_submit(f) is None:  # queue full: wait, never drop
-                time.sleep(0.0005)
-            results += drv.poll()
-        results += drv.flush()
-        wall = time.perf_counter() - t0
-        st = drv.stats()
-        drv.close()
-        drv.join(30.0)
+        _, pipe, _, results, wall, st = _timed_run(_pipeline, frames, 1)
+        launches = dct8_quant_zigzag.launches - launches0
         dispatched += pipe._seq
         check(len(results) == N_FRAMES and st["encode_errors"] == 0,
               f"{pattern}: {len(results)} of {N_FRAMES} frames, {st}")
+        base, pipe, kept, results_c, wall_c, st_c = _timed_run(
+            _pipeline, frames, 1,
+            record=lambda b: _recording(b, N_FRAMES + 1))
+        dispatched += pipe._seq
+        check(len(results_c) == N_FRAMES and st_c["encode_errors"] == 0,
+              f"{pattern} checked: {len(results_c)} of {N_FRAMES} frames, "
+              f"{st_c}")
         tally = _check_recorded(base, kept)
         # _scans_from_packed runs for every frame that emits a stripe
         # (the warm-up frame included)
-        coded = 1 + sum(1 for _, stripes in results if stripes)
+        coded = 1 + sum(1 for _, stripes in results_c if stripes)
         check(tally["frames"] == coded and tally["mismatch"] == 0,
               f"{pattern}: {coded} frames coded; scans vs entropy_py {tally}")
         out["patterns"][pattern] = {
-            "checked_frames": tally["frames"],
-            "checked_stripes": tally["stripes"],
-            "checked_host_coded": tally["host_coded"],
-            "check_s": tally["check_s"],
             "frames": N_FRAMES,
-            "fps": N_FRAMES / wall,
+            **_rates(N_FRAMES, wall, st),
             "stripes_per_frame": sum(len(s) for _, s in results) / N_FRAMES,
-            "dispatch_p50_ms": st["dispatch_p50_ms"],
-            "fetch_wait_p50_ms": st["fetch_wait_p50_ms"],
             "d2h_bytes_per_frame": st["d2h_bytes_per_frame"],
             "host_entropy_ms_per_frame": st["host_entropy_ms_per_frame"],
             "host_fallback_stripes": st["host_fallback_stripes"],
             "inflight_batches_max": st["inflight_batches_max"],
-            "kernel_launches": dct8_quant_zigzag.launches - launches0,
+            "kernel_launches": launches,
+            "checked_run": _rates(N_FRAMES, wall_c, st_c),
+            "checked_frames": tally["frames"],
+            "checked_stripes": tally["stripes"],
+            "checked_host_coded": tally["host_coded"],
+            "check_s": tally["check_s"],
         }
     out["overflow"], n = _overflow_run()
     out["frames_dispatched"] = dispatched + n
     return out
 
 
-def phase_profile(n_frames: int = 30):
+def phase_profile(make_pipeline, kernel_key: str, profile_name: str,
+                  n_frames: int = 30):
     """Where a frame's time goes on the card: torch.profiler over a steady
-    window of the pipelined 1080p scroll encode (every stripe damaged).
-    Device busy share is the union of device intervals over the window."""
+    window of a pipelined 1080p scroll encode (every stripe damaged).
+    Device busy share is the union of device intervals over the window;
+    ``kernel_key`` names the hand-written kernel whose share is reported."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -414,7 +493,7 @@ def phase_profile(n_frames: int = 30):
 
     src = SyntheticSource(W, H, pattern="scroll", seed=3)
     frames = [src.next_frame() for _ in range(n_frames + 10)]
-    base, pipe, drv = _pipeline()
+    base, pipe, drv = make_pipeline()
     for f in frames[:10]:                   # warm: allocator, first steps
         while drv.try_submit(f) is None:
             time.sleep(0.0005)
@@ -433,7 +512,7 @@ def phase_profile(n_frames: int = 30):
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     check(bool(dev), "profiler recorded no device events")
-    out = {"phase": "profile", "pattern": "scroll", "frames": n_frames,
+    out = {"phase": profile_name, "pattern": "scroll", "frames": n_frames,
            "wall_ms_per_frame": wall_us / 1e3 / n_frames}
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
@@ -452,7 +531,8 @@ def phase_profile(n_frames: int = 30):
         d[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     total_us = sum(v[1] for v in by_name.values())
-    dct_us = sum(v[1] for k, v in by_name.items() if "dct8_quant_zigzag" in k)
+    kernel_us = sum(v[1] for k, v in by_name.items()
+                    if any(n in k for n in kernel_key.split("|")))
     copy_us = sum(v[1] for k, v in by_name.items() if "Memcpy" in k or "Memset" in k)
     htod_us = sum(v[1] for k, v in by_name.items() if "Memcpy HtoD" in k)
     out.update({
@@ -460,8 +540,10 @@ def phase_profile(n_frames: int = 30):
         "device_busy_share": busy / max(1.0, window),
         "device_idle_share": 1.0 - busy / max(1.0, window),
         "device_ops_per_frame": len(dev) / n_frames,
-        "dct_kernel_ms_per_frame": dct_us / 1e3 / n_frames,
-        "copies_ms_per_frame": copy_us / 1e3 / n_frames,
+        "kernel": kernel_key,
+        "kernel_ms_per_frame": kernel_us / 1e3 / n_frames,
+        "kernel_share_of_device_time": kernel_us / max(1.0, total_us),
+        "copies_and_memsets_ms_per_frame": copy_us / 1e3 / n_frames,
         "htod_ms_per_frame": htod_us / 1e3 / n_frames,
         "top_device_ops": [
             {"name": k[:80], "calls_per_frame": v[0] / n_frames,
@@ -495,9 +577,11 @@ def phase_small_reference():
     return {"small_frames": len(frames), "small_stripes_identical": same}
 
 
-def phase_server(min_frames: int = 30, timeout_s: float = 180.0):
+def phase_server(profile: str = "jpeg", min_frames: int = 30,
+                 timeout_s: float = 180.0):
     """An in-process client through the port's ws_handler at 1920x1080:
-    SETTINGS handshake, >= min_frames frames of 0x03 stripes, each ACKed."""
+    SETTINGS handshake, >= min_frames frames of stripes (0x03 JPEG, or
+    0x04 H.264 for x264enc-striped), each ACKed."""
     from selkies_tpu_torch.protocol.wire import unpack_binary
     from selkies_tpu_torch.server.data_server import DataStreamingServer
     from selkies_tpu_torch.settings import Settings
@@ -529,8 +613,11 @@ def phase_server(min_frames: int = 30, timeout_s: float = 180.0):
                 raise StopAsyncIteration
             return m
 
+    h264 = profile == "x264enc-striped"
+
     async def run():
-        settings = Settings(argv=[], env={"SELKIES_PORT": "0"})
+        settings = Settings(argv=[], env={"SELKIES_PORT": "0",
+                                          "SELKIES_ENCODER": profile})
         server = DataStreamingServer(settings, device=DEVICE)
         ws = Client()
         task = asyncio.create_task(server.ws_handler(ws))
@@ -545,8 +632,14 @@ def phase_server(min_frames: int = 30, timeout_s: float = 180.0):
             for m in ws.sent[seen:]:
                 if isinstance(m, (bytes, bytearray)):
                     f = unpack_binary(bytes(m))
-                    check(m[0] == 0x03 and f.payload[:2] == b"\xff\xd8"
-                          and f.payload[-2:] == b"\xff\xd9", "bad 0x03 stripe")
+                    if h264:
+                        check(m[0] == 0x04
+                              and f.payload[:4] == b"\x00\x00\x00\x01",
+                              "bad 0x04 stripe")
+                    else:
+                        check(m[0] == 0x03 and f.payload[:2] == b"\xff\xd8"
+                              and f.payload[-2:] == b"\xff\xd9",
+                              "bad 0x03 stripe")
                     stripes += 1
                     nbytes += len(m)
                     if f.frame_id not in acked:
@@ -558,12 +651,15 @@ def phase_server(min_frames: int = 30, timeout_s: float = 180.0):
         await asyncio.sleep(0.2)
         st = server.display_clients["primary"]
         result = {
-            "phase": "server", "width": W, "height": H,
+            "phase": "server_h264" if h264 else "server", "profile": profile,
+            "width": W, "height": H,
             "mode": ws.sent[0] if ws.sent else None,
             "frames_received": len(acked), "stripes_received": stripes,
             "bytes_received": nbytes,
             "acknowledged_frame_id": st.bp.acknowledged_frame_id,
             "send_enabled": st.bp.send_enabled,
+            "encoder_stats": (st.encoder.stats() if st.encoder is not None
+                              else None),
             "first_frame_s": first_frame_s,
             "frames_per_s_after_first": (
                 (len(acked) - 1) / (time.monotonic() - t0 - first_frame_s - 0.2)
@@ -579,7 +675,297 @@ def phase_server(min_frames: int = 30, timeout_s: float = 180.0):
     check(res["frames_received"] >= min_frames,
           f"server sent {res['frames_received']} frames < {min_frames}")
     check(res["acknowledged_frame_id"] >= min_frames, "ACKs not taken")
+    es = res["encoder_stats"] or {}
+    check(es.get("encode_errors", 0) == 0
+          and es.get("entropy_errors", 0) == 0,
+          f"server encoder errors: {es}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# H.264 (x264enc-striped)
+
+
+def _h264_planes(cur_np, ref_np, enc):
+    """The (cur, ref, ref_cb, ref_cr) stripe tensors the P step hands the
+    motion kernel for one frame pair (the encoder's own planes on the
+    card; the reference here is the previous source frame)."""
+    import torch
+
+    from selkies_tpu_torch.encoder.h264_device import prepare_planes
+
+    S, sh, pw = enc.n_stripes, enc.stripe_h, enc.pad_w
+    y1, _, _ = prepare_planes(torch.from_numpy(cur_np).to(enc.device),
+                              enc.pad_h, pw)
+    y0, cb0, cr0 = prepare_planes(torch.from_numpy(ref_np).to(enc.device),
+                                  enc.pad_h, pw)
+    return [y1.reshape(S, sh, pw), y0.reshape(S, sh, pw),
+            cb0.reshape(S, sh // 2, pw // 2), cr0.reshape(S, sh // 2, pw // 2)]
+
+
+def _tie_pairs():
+    """Frame pairs whose searches tie: "flat" (two constant frames of
+    different levels: all 625 offsets have one SAD) and "lattice" (a 4x4
+    dot lattice moved by one pixel each way: every offset congruent to
+    (1, 1) mod 4 has SAD 0 away from the stripe edges, so the winner is
+    the lowest rank among many non-zero offsets)."""
+    flat_cur = np.full((H, W, 3), 90, np.uint8)
+    flat_ref = np.full((H, W, 3), 100, np.uint8)
+    yy, xx = np.mgrid[0:H, 0:W]
+    dots = np.where((yy % 4 == 0) & (xx % 4 == 0), 220, 30).astype(np.uint8)
+    lat_ref = np.repeat(dots[..., None], 3, -1)
+    lat_cur = np.roll(lat_ref, (1, 1), axis=(0, 1))
+    return {"flat": (flat_cur, flat_ref), "lattice": (lat_cur, lat_ref)}
+
+
+def phase_me_kernel_check(int_ops_per_s: float):
+    """me_mc_stripes against its plain version (full_search_mc) at the
+    1080p stripe shapes, on a scroll pair (true motion), a noise pair and
+    two pairs whose searches tie (_tie_pairs): mv and the three
+    predictions must be exactly equal. Then kernel and plain times and the
+    bound of the work."""
+    import torch
+
+    from selkies_tpu_torch import _build
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+    from selkies_tpu_torch.ops.motion import full_search_mc
+
+    enc = H264StripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE)
+    scroll = SyntheticSource(W, H, pattern="scroll", seed=0)
+    a = scroll.next_frame()
+    pairs = {"scroll": (scroll.next_frame(), a),
+             "noise": (SyntheticSource(W, H, pattern="noise", seed=1)
+                       .next_frame(),
+                       SyntheticSource(W, H, pattern="noise", seed=2)
+                       .next_frame()),
+             **_tie_pairs()}
+    n_diff = n_vals = 0
+    per_pair, moved = {}, {}
+    for name, (cur, ref) in pairs.items():
+        args = _h264_planes(cur, ref, enc)
+        got = me_mc_stripes(*args)
+        want = full_search_mc(*args)
+        torch.cuda.synchronize()
+        d = sum(int((g != w_).sum().item()) for g, w_ in zip(got, want))
+        per_pair[name] = d
+        n_diff += d
+        n_vals += sum(g.numel() for g in got)
+        moved[name] = int((got[0] != 0).any(-1).sum().item())
+    check(n_diff == 0, f"me_mc kernel vs plain: {n_diff} of {n_vals} differ "
+          f"({per_pair})")
+    check(moved["scroll"] > 0, "scroll pair found no motion")
+    check(moved["flat"] == 0, "flat pair: a tie went past rank 0")
+    check(moved["lattice"] > 0, "lattice pair found no motion")
+
+    args = _h264_planes(*pairs["scroll"], enc)
+    kernel_ms = device_ms(lambda: me_mc_stripes(*args), 50)
+    plain_ms = device_ms(lambda: full_search_mc(*args), 2)
+    check(None not in (kernel_ms, plain_ms), "profiler recorded no device time")
+    events_ms = cuda_time_ms(lambda: me_mc_stripes(*args), 20)
+
+    S, h, w = args[0].shape
+    n_off = (2 * enc.search + 1) ** 2
+    # per 4 pixel-offsets, one VABSDIFF4 (four byte |differences|) and one
+    # IDP.4A (their sum into the SAD): the fewest instructions the search
+    # needs; the per-MB minimum and the prediction pass add under 1%
+    ops = 2 * n_off * S * h * w // 4
+    in_bytes = sum(t.numel() for t in args)
+    out_bytes = S * h * w + 2 * (S * h * w // 4) + 4 * 2 * (S * h * w // 256)
+    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    ops_ms = ops / int_ops_per_s * 1e3
+    return {
+        "name": "me_mc_stripes",
+        "route": "cuda",
+        "source": "selkies_tpu_torch/csrc/me_mc.cu",
+        "replaces": "selkies_tpu/ops/pallas_me.py:234",
+        "launches": None,                   # filled from the main-path run
+        "max_abs_err": 0 if n_diff == 0 else None,
+        "n_diff": n_diff,
+        "n_values": n_vals,
+        "n_diff_by_pair": per_pair,
+        "moved_blocks_by_pair": moved,
+        "ms": kernel_ms,
+        "ms_timing": "torch.profiler device time, 50 reps, 1080p scroll pair",
+        "events_ms": events_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_basis": (f"{ops:.4g} byte-SIMD instructions (VABSDIFF4 + "
+                        f"IDP.4A per 4 pixel-offsets) / ({INT32_LANES} "
+                        f"lanes x {int_ops_per_s / INT32_LANES / 1e6:.0f} "
+                        f"MHz max SM clock); {in_bytes + out_bytes} bytes / "
+                        "3.35 TB/s"),
+        "library_ms": None,
+        "unit": f"one 1080p P frame: {S} stripes of {h}x{w}, 1 launch",
+        "ptxas": [ln.strip() for ln in _build.ptxas_report.get("me_mc", "")
+                  .splitlines() if "registers" in ln or "spill" in ln],
+    }
+
+
+def _h264_pipeline():
+    """The served x264enc-striped encoder, as the data server builds it."""
+    from selkies_tpu_torch.server.data_server import default_encoder_factory
+    from selkies_tpu_torch.settings import Settings
+
+    settings = Settings(argv=[], env={"SELKIES_PORT": "0",
+                                      "SELKIES_ENCODER": "x264enc-striped"})
+    drv = default_encoder_factory(W, H, settings, device=DEVICE)
+    return drv.pipe.base, drv.pipe, drv
+
+
+def _h264_recording(base, n_keep: int):
+    """Wrap base.harvest: count IDR and P frames, and keep (``n_keep`` >
+    0), for every CHECK_EVERY-th P frame, a copy of its exact levels
+    on the card (in a buffer allocated here, before any timed window), its
+    stripes' QPs and frame numbers, and the stripes it emitted."""
+    import torch
+
+    with base.stream_context():
+        levels = torch.empty((n_keep, base.n_stripes, base._stripe_words),
+                             dtype=torch.int16, device=base.device)
+    orig = base.harvest
+    kept, counts = [], {"idr": 0, "p": 0}
+
+    def wrapped(p, host=None):
+        frame_nums = [st.frame_num for st in base.stripes]
+        out = orig(p, host)
+        if p.is_idr:
+            counts["idr"] += 1
+        else:
+            counts["p"] += 1
+            if n_keep and counts["p"] % CHECK_EVERY == 0:
+                slot = len(kept)
+                check(slot < n_keep, f"more than {n_keep} P frames kept")
+                with base.stream_context():
+                    levels[slot].copy_(p.flat16)
+                kept.append((levels[slot], p.qp.copy(), frame_nums, out))
+        return out
+
+    base.harvest = wrapped
+    return kept, counts
+
+
+def _check_h264(base, kept) -> dict:
+    """Every kept stripe's Annex-B must equal the native coder on that
+    stripe's exact levels (flat16) fetched from the card."""
+    from selkies_tpu_torch.encoder.h264 import encode_picture_nals_np
+
+    mb_w, mb_h = base.pad_w // 16, base.stripe_h // 16
+    index = {st.y0: i for i, st in enumerate(base.stripes)}
+    tally = {"frames": len(kept), "stripes": 0, "mismatch": 0}
+    t0 = time.perf_counter()
+    for flat16, qps, frame_nums, out in kept:
+        rows = base._to_host(flat16)
+        for s in out:
+            i = index[s.y_start]
+            row = rows[i].astype(np.int32)
+            parts, pos = [], 0
+            for shape, size in base._shapes:
+                parts.append(row[pos:pos + size].reshape(shape))
+                pos += size
+            want = encode_picture_nals_np(
+                *parts, is_idr=False, mb_w=mb_w, mb_h=mb_h,
+                qp=int(qps[i]), frame_num=frame_nums[i])
+            tally["stripes"] += 1
+            tally["mismatch"] += int(s.annexb != want or s.is_key)
+    tally["check_s"] = time.perf_counter() - t0
+    return tally
+
+
+def phase_h264_encoder():
+    """1920x1080 x264enc-striped through PipelinedH264Encoder +
+    AsyncEncodeDriver over the desktop and scroll patterns, N_H264 timed
+    frames each, twice: a run that keeps nothing gives the rates; in a
+    checked run every CHECK_EVERY-th P frame's levels are kept and its
+    stripes checked after the window."""
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+
+    out = {"phase": "h264_encoder", "profile": "x264enc-striped",
+           "width": W, "height": H, "patterns": {}}
+    p_frames = 0
+    for pattern in ("desktop", "scroll"):
+        src = SyntheticSource(W, H, pattern=pattern, seed=2)
+        frames = [src.next_frame() for _ in range(N_H264 + 2)]
+        launches0 = me_mc_stripes.launches
+        # warm-up: the IDR, then the first P step
+        _, _, (_, counts), results, wall, st = _timed_run(
+            _h264_pipeline, frames, 2, record=lambda b: _h264_recording(b, 0))
+        launches = me_mc_stripes.launches - launches0
+        p_frames += counts["p"]
+        check(len(results) == N_H264 and st["encode_errors"] == 0
+              and st["entropy_errors"] == 0,
+              f"h264 {pattern}: {len(results)} of {N_H264} frames, {st}")
+        base, _, (kept, counts), results_c, wall_c, st_c = _timed_run(
+            _h264_pipeline, frames, 2,
+            record=lambda b: _h264_recording(b, N_H264 // CHECK_EVERY + 1))
+        p_frames += counts["p"]
+        check(len(results_c) == N_H264 and st_c["encode_errors"] == 0
+              and st_c["entropy_errors"] == 0,
+              f"h264 {pattern} checked: {len(results_c)} of {N_H264} "
+              f"frames, {st_c}")
+        tally = _check_h264(base, kept)
+        check(tally["mismatch"] == 0 and tally["stripes"] > 0,
+              f"h264 {pattern}: stripes vs native coder {tally}")
+        out["patterns"][pattern] = {
+            "frames": N_H264,
+            **_rates(N_H264, wall, st),
+            "stripes_per_frame": sum(len(s) for _, s in results) / N_H264,
+            "bytes_per_frame": sum(len(x.annexb) for _, s in results
+                                   for x in s) / N_H264,
+            "d2h_bytes_per_frame": st["d2h_bytes_per_frame"],
+            "host_entropy_ms_per_frame": st["host_entropy_ms_per_frame"],
+            "host_coded_stripes": st["host_coded_stripes"],
+            "entropy_errors_total": st["entropy_errors"] + st_c["entropy_errors"],
+            "inflight_batches_max": st["inflight_batches_max"],
+            "me_mc_launches": launches,
+            "checked_run": _rates(N_H264, wall_c, st_c),
+            "checked_frames": tally["frames"],
+            "checked_stripes": tally["stripes"],
+            "check_s": tally["check_s"],
+        }
+    out["p_frames_dispatched"] = p_frames
+    return out
+
+
+def phase_h264_cross():
+    """A short 1920x256 sequence (IDR, 3 scrolled P frames, static frames
+    up to paint-over, a keyframe request, one more P frame) encoded on the
+    card and on the CPU: every Annex-B stripe must be byte-equal."""
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+
+    w, h = W, 256
+    src = SyntheticSource(w, h, pattern="scroll", seed=7)
+    frames = [src.next_frame() for _ in range(4)]
+    frames += [frames[-1]] * 3 + [frames[-1], src.next_frame()]
+    kw = dict(stripe_height=STRIPE, paint_over_trigger_frames=2)
+    gpu = H264StripeEncoder(w, h, device=DEVICE, **kw)
+    cpu = H264StripeEncoder(w, h, device="cpu", **kw)
+    same = total = keys = 0
+    paint_frames = 0
+    for k, f in enumerate(frames):
+        if k == 7:
+            gpu.request_keyframe()
+            cpu.request_keyframe()
+        a, b = gpu.encode_frame(f), cpu.encode_frame(f)
+        check([(s.y_start, s.is_key) for s in a]
+              == [(s.y_start, s.is_key) for s in b],
+              f"h264_cross frame {k}: card and CPU emitted different stripes")
+        total += len(a)
+        keys += sum(s.is_key for s in a)
+        same += sum(x.annexb == y.annexb for x, y in zip(a, b))
+        paint_frames += int(k in (4, 5, 6) and bool(a))
+    check(same == total, f"h264_cross: {same} of {total} stripes equal")
+    check(keys == 2 * gpu.n_stripes and paint_frames == 1,
+          f"h264_cross: {keys} key stripes, {paint_frames} paint-over frames")
+    check(gpu.entropy_errors_total == 0, "h264_cross: entropy errors")
+    return {"phase": "h264_cross", "width": w, "height": h,
+            "frames": len(frames), "stripes": total,
+            "stripes_identical": same, "key_stripes": keys,
+            "paint_over_frames": paint_frames}
 
 
 def main() -> int:
@@ -591,34 +977,69 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import selkies_tpu_torch  # noqa: F401  (absent beside a lone script)
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
 
     t_start = time.perf_counter()
-    phase_setup()
+    clock_hz = phase_setup()
     kern = phase_kernel_check()
+    kern_me = phase_me_kernel_check(INT32_LANES * clock_hz)
 
-    # the main path: launch counts from 0 just before it, read just after
-    dct8_quant_zigzag.launches = 0
+    # the JPEG path: launch counts from 0 just before it, read just after
+    _settle("encoder")
+    dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
     enc = phase_encoder()
     enc_launches = dct8_quant_zigzag.launches
     check(enc_launches == 3 * enc["frames_dispatched"],
           f"{enc_launches} kernel launches for {enc['frames_dispatched']} "
           "frames (3 per frame expected)")
     enc["kernel_launches_per_frame"] = enc_launches / enc["frames_dispatched"]
-    server = phase_server()
+    _settle("server")
+    server = phase_server("jpeg")
     launches = dct8_quant_zigzag.launches
     server["kernel_launches"] = launches - enc_launches
     check(server["kernel_launches"] >= 3 * server["frames_received"],
           "server path did not run the kernel for every frame")
     kern["launches"] = launches
-    check(launches > 0, "the main path never launched dct8_quant_zigzag")
-    enc.update(phase_small_reference())
-    prof = phase_profile()
+    check(launches > 0, "the JPEG path never launched dct8_quant_zigzag")
+    check(me_mc_stripes.launches == 0, "the JPEG path launched me_mc")
 
-    emit({"kernels": [kern]})
+    # the H.264 path: counts from 0 just before it, read just after
+    _settle("h264_encoder")
+    dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    h264 = phase_h264_encoder()
+    h264_launches = me_mc_stripes.launches
+    check(h264_launches == h264["p_frames_dispatched"],
+          f"{h264_launches} me_mc launches for "
+          f"{h264['p_frames_dispatched']} P frames (1 per P frame expected)")
+    _settle("server_h264")
+    server_h264 = phase_server("x264enc-striped")
+    launches = me_mc_stripes.launches
+    server_h264["me_mc_launches"] = launches - h264_launches
+    check(server_h264["me_mc_launches"] >= server_h264["frames_received"] - 1,
+          "H.264 server path did not run me_mc for every P frame")
+    kern_me["launches"] = launches
+    check(launches > 0, "the H.264 path never launched me_mc_stripes")
+    check(dct8_quant_zigzag.launches == 0, "the H.264 path launched dct8")
+
+    enc.update(phase_small_reference())
+    cross = phase_h264_cross()
+    _settle("profile")
+    prof = phase_profile(_pipeline, "dct8_quant_zigzag", "profile")
+    _settle("profile_h264")
+    prof_h264 = phase_profile(_h264_pipeline,
+                              "me_search_kernel|mc_pred_kernel",
+                              "profile_h264")
+
+    emit({"kernels": [kern, kern_me]})
     emit(enc)
+    emit(h264)
     emit(server)
+    emit(server_h264)
+    emit(cross)
     emit(prof)
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit(prof_h264)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "settled": SETTLED})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

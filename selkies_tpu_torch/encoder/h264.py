@@ -1,0 +1,537 @@
+"""H.264 Constrained-Baseline striped encoder, the ``x264enc-striped``
+profile (counterpart of ``selkies_tpu/encoder/h264.py``).
+
+Each horizontal stripe is an independent H.264 sequence with its own
+SPS/PPS/IDR chain, so the client runs one decoder per stripe and only
+damaged stripes are encoded and shipped.
+
+Split of work:
+  * device (``h264_device.py``): color/4:2:0, the motion-search kernel,
+    transforms, quant, the decoder-exact reconstruction and, for P frames,
+    the CAVLC pack (``device_cavlc.py``);
+  * host (``native/cavlc.cpp``): CAVLC for IDR pictures and for P stripes
+    whose device pack overflowed;
+  * here: stripe/GOP orchestration, damage gating, paint-over (low-QP P
+    frames), SPS/PPS, slice-header glue and the reference-plane state.
+
+Every device call runs on the encoder's one CUDA stream (``stream``). The
+fetch of a frame's head is a ``non_blocking`` copy into pinned memory with
+an event that :meth:`H264StripeEncoder.harvest` waits on.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..native import cavlc_lib
+from . import device_cavlc as dcav
+from . import h264_device as dev
+from .staging import HostCopy
+
+logger = logging.getLogger("selkies_tpu_torch.encoder.h264")
+
+MB = 16
+
+
+# ---------------------------------------------------------------------------
+# SPS / PPS
+
+
+class _BitWriter:
+    def __init__(self) -> None:
+        self.bits: List[int] = []
+
+    def u(self, value: int, n: int) -> None:
+        for i in range(n - 1, -1, -1):
+            self.bits.append((value >> i) & 1)
+
+    def ue(self, v: int) -> None:
+        vp1 = v + 1
+        n = vp1.bit_length() - 1
+        self.u(0, n)
+        self.u(vp1, n + 1)
+
+    def se(self, v: int) -> None:
+        self.ue(-2 * v if v <= 0 else 2 * v - 1)
+
+    def rbsp(self) -> bytes:
+        bits = self.bits + [1]
+        while len(bits) % 8:
+            bits.append(0)
+        out = bytearray()
+        for i in range(0, len(bits), 8):
+            b = 0
+            for bit in bits[i:i + 8]:
+                b = (b << 1) | bit
+            out.append(b)
+        # emulation prevention
+        esc = bytearray()
+        zeros = 0
+        for b in out:
+            if zeros >= 2 and b <= 3:
+                esc.append(3)
+                zeros = 0
+            esc.append(b)
+            zeros = zeros + 1 if b == 0 else 0
+        return bytes(esc)
+
+
+def _nal(nal_type: int, rbsp: bytes, ref_idc: int = 3) -> bytes:
+    return b"\x00\x00\x00\x01" + bytes(((ref_idc << 5) | nal_type,)) + rbsp
+
+
+def make_sps(width: int, height: int, *, coded_height: Optional[int] = None,
+             level_idc: int = 40, full_range: bool = True) -> bytes:
+    """Constrained-Baseline SPS for a (possibly cropped) 4:2:0 frame.
+
+    ``coded_height`` (a MB multiple >= height) must match the rows the
+    slices code: a partial last stripe still codes full ``stripe_h`` rows,
+    and an SPS declaring fewer MB rows is an invalid bitstream."""
+    mb_w = (width + 15) // 16
+    mb_h = ((coded_height or height) + 15) // 16
+    crop_r = (mb_w * 16 - width) // 2
+    crop_b = (mb_h * 16 - height) // 2
+    bw = _BitWriter()
+    bw.u(66, 8)          # profile_idc: Baseline
+    bw.u(0b11000000, 8)  # constraint_set0+1 (constrained baseline)
+    bw.u(level_idc, 8)
+    bw.ue(0)             # sps id
+    bw.ue(0)             # log2_max_frame_num_minus4 -> 4-bit frame_num
+    bw.ue(2)             # pic_order_cnt_type
+    bw.ue(1)             # max_num_ref_frames
+    bw.u(0, 1)           # gaps_in_frame_num_value_allowed
+    bw.ue(mb_w - 1)
+    bw.ue(mb_h - 1)
+    bw.u(1, 1)           # frame_mbs_only
+    bw.u(1, 1)           # direct_8x8_inference
+    if crop_r or crop_b:
+        bw.u(1, 1)
+        bw.ue(0)
+        bw.ue(crop_r)
+        bw.ue(0)
+        bw.ue(crop_b)
+    else:
+        bw.u(0, 1)
+    # VUI: BT.601 + range so the browser matches the color matrix
+    bw.u(1, 1)           # vui_parameters_present
+    bw.u(0, 1)           # aspect_ratio_info_present
+    bw.u(0, 1)           # overscan_info_present
+    bw.u(1, 1)           # video_signal_type_present
+    bw.u(5, 3)           # video_format: unspecified
+    bw.u(1 if full_range else 0, 1)
+    bw.u(1, 1)           # colour_description_present
+    bw.u(6, 8)           # primaries: SMPTE 170M
+    bw.u(6, 8)           # transfer
+    bw.u(6, 8)           # matrix: BT.601
+    bw.u(0, 1)           # chroma_loc_info_present
+    bw.u(0, 1)           # timing_info_present
+    bw.u(0, 1)           # nal_hrd
+    bw.u(0, 1)           # vcl_hrd
+    bw.u(0, 1)           # pic_struct_present
+    bw.u(0, 1)           # bitstream_restriction
+    return _nal(7, bw.rbsp())
+
+
+def make_pps() -> bytes:
+    bw = _BitWriter()
+    bw.ue(0)     # pps id
+    bw.ue(0)     # sps id
+    bw.u(0, 1)   # entropy_coding_mode: CAVLC
+    bw.u(0, 1)   # bottom_field_pic_order_in_frame_present
+    bw.ue(0)     # num_slice_groups_minus1
+    bw.ue(0)     # num_ref_idx_l0_default_active_minus1
+    bw.ue(0)     # num_ref_idx_l1_default_active_minus1
+    bw.u(0, 1)   # weighted_pred
+    bw.u(0, 2)   # weighted_bipred_idc
+    bw.se(0)     # pic_init_qp_minus26 (slice writer assumes 26)
+    bw.se(0)     # pic_init_qs_minus26
+    bw.se(0)     # chroma_qp_index_offset (qpc_for assumes 0)
+    bw.u(1, 1)   # deblocking_filter_control_present (slices disable it)
+    bw.u(0, 1)   # constrained_intra_pred
+    bw.u(0, 1)   # redundant_pic_cnt_present
+    return _nal(8, bw.rbsp())
+
+
+# ---------------------------------------------------------------------------
+# host entropy
+
+
+def encode_picture_nals_np(mv, luma, luma_dc, chroma_dc, chroma_ac, *,
+                           is_idr: bool, mb_w: int, mb_h: int, qp: int,
+                           frame_num: int, idr_pic_id: int = 0) -> bytes:
+    """The native CAVLC coder over host-resident level arrays (one
+    picture: every MB its own slice for IDR, one slice for P; deblocking
+    disabled)."""
+    lib = cavlc_lib()
+    cap = 1 << 22
+    buf = np.empty(cap, np.uint8)
+    n = lib.h264_encode_picture(
+        1 if is_idr else 0, mb_w, mb_h, qp, frame_num & 0xF, idr_pic_id,
+        np.ascontiguousarray(mv, np.int32),
+        np.ascontiguousarray(luma, np.int32),
+        np.ascontiguousarray(luma_dc, np.int32),
+        np.ascontiguousarray(chroma_dc, np.int32),
+        np.ascontiguousarray(chroma_ac, np.int32),
+        buf, cap, 0)
+    if n < 0:
+        raise RuntimeError("CAVLC output exceeded capacity")
+    return bytes(buf[:n])
+
+
+# ---------------------------------------------------------------------------
+# stripe orchestration
+
+
+@dataclass
+class H264Stripe:
+    y_start: int
+    width: int          # coded (cropped) width
+    height: int         # coded (cropped) height of this stripe
+    annexb: bytes
+    is_key: bool
+
+
+@dataclass
+class _StripeState:
+    y0: int             # luma row offset (unpadded coordinates)
+    h: int              # unpadded stripe height (the last may be short)
+    frame_num: int = 0
+    idr_pic_id: int = 0
+    need_idr: bool = True
+    static_frames: int = 0
+    painted_over: bool = False
+
+
+@dataclass
+class _H264Pending:
+    """One dispatched frame."""
+
+    fetch: Optional[HostCopy]   # head (P) or flat16 (IDR) copy, if started
+    flat16: torch.Tensor        # exact levels on the device
+    is_idr: bool
+    paint: np.ndarray
+    qp: np.ndarray
+    buf: Optional[torch.Tensor] = None   # full device-CAVLC buffer (P)
+    head: Optional[torch.Tensor] = None  # its fetch prefix (P)
+
+
+class H264StripeEncoder:
+    """Striped H.264 encoder with damage gating and device CAVLC.
+
+    ``device=None`` runs on the card (and raises without one); the tests
+    pass ``device="cpu"``, where the motion-search wrapper takes its plain
+    PyTorch version."""
+
+    def __init__(self, width: int, height: int, *, stripe_height: int = 64,
+                 qp: int = 26, paint_over_qp: int = 18,
+                 paint_over_trigger_frames: int = 15, search: int = 12,
+                 device=None) -> None:
+        if width % 2 or height % 2:
+            raise ValueError("frame dimensions must be even")
+        if stripe_height % MB:
+            raise ValueError("stripe_height must be a multiple of 16")
+        self.device = resolve_device(device)
+        self.width = width
+        self.height = height
+        self.qp = int(np.clip(qp, 0, 51))
+        self.paint_over_qp = int(np.clip(paint_over_qp, 0, 51))
+        self.paint_over_trigger = paint_over_trigger_frames
+        self.search = search
+        self.pad_w = (width + MB - 1) // MB * MB
+        sh = (stripe_height + MB - 1) // MB * MB
+        self.stripe_h = sh
+        self.stripes: List[_StripeState] = []
+        y = 0
+        while y < height:
+            h = min(sh, height - y)
+            self.stripes.append(_StripeState(y0=y, h=h))
+            y += h
+        #: uniform stripe grid: the padded height is S x stripe_h, so the
+        #: whole frame encodes in one step over the stripe axis
+        self.n_stripes = len(self.stripes)
+        self.pad_h = self.n_stripes * sh
+        self._sps_pps: Dict[int, bytes] = {}
+        #: the one stream every device call of this encoder runs on
+        self.stream = (torch.cuda.Stream(device=self.device)
+                       if self.device.type == "cuda" else None)
+
+        with self.stream_context():
+            u8 = dict(dtype=torch.uint8, device=self.device)
+            self._prev_y = torch.zeros((self.pad_h, self.pad_w), **u8)
+            self._prev_cb = torch.zeros((self.pad_h // 2, self.pad_w // 2),
+                                        **u8)
+            self._prev_cr = torch.zeros_like(self._prev_cb)
+            self._ref_y = torch.zeros_like(self._prev_y)
+            self._ref_cb = torch.zeros_like(self._prev_cb)
+            self._ref_cr = torch.zeros_like(self._prev_cr)
+
+        n = (sh // MB) * (self.pad_w // MB)
+        self._shapes = [((n, 2), 2 * n), ((n, 16, 4, 4), 256 * n),
+                        ((n, 4, 4), 16 * n), ((n, 2, 2, 2), 8 * n),
+                        ((n, 2, 4, 4, 4), 128 * n)]
+        self._stripe_words = sum(s for _, s in self._shapes)
+
+        #: device-CAVLC transfer geometry: a fixed head, then the payloads.
+        #: Two fetch tiers: static content ships the small prefix, busy
+        #: content the sized one (~pixels/80: full-damage 1080p scroll runs
+        #: ~12.7 KB of bitstream per frame); an undershoot re-reads.
+        self._cavlc_msb = dcav.default_max_stripe_bytes(
+            self.pad_w // MB, sh // MB)
+        self._fixed_bytes = dcav.HEAD_BYTES * self.n_stripes
+        self._buf_bytes = self._fixed_bytes + self.n_stripes * self._cavlc_msb
+        self._guess_bytes = self._bucket(self._fixed_bytes + (16 << 10))
+        self._prefix_large = self._bucket(
+            self._fixed_bytes + max(24 << 10, self.pad_h * self.pad_w // 80))
+        self._prefix_small = self._bucket(self._fixed_bytes + 4096)
+
+        #: host entropy wall time and D2H re-read bytes per harvested frame
+        self.host_entropy_ms_total = 0.0
+        self.d2h_refetch_bytes_total = 0
+        #: P stripes coded on the host because their device pack overflowed
+        self.host_coded_stripes_total = 0
+        #: stripes whose entropy coding failed and forced an IDR resync
+        self.entropy_errors_total = 0
+
+    # -- device plumbing ---------------------------------------------------
+
+    def stream_context(self):
+        """Context that makes this encoder's stream current (no-op on CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Small per-frame host array to the device: through pinned memory
+        with a non-blocking copy (a pageable copy would wait for every frame
+        already queued on the stream)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """Blocking read on the encoder's stream (the rare re-reads)."""
+        with self.stream_context():
+            return t.cpu().numpy()
+
+    def _choose_prefix(self) -> int:
+        """The small head for quiet content, the sized one otherwise, from
+        the estimate harvest keeps (~1.5x the last frame's bytes)."""
+        if self._guess_bytes <= self._prefix_small:
+            return self._prefix_small
+        return self._prefix_large
+
+    def _bucket(self, nbytes: int) -> int:
+        """Power-of-two fetch prefix, at most the whole buffer."""
+        n = 4096
+        while n < nbytes:
+            n <<= 1
+        return min(n, self._buf_bytes)
+
+    def _sps_pps_for(self, st: _StripeState) -> bytes:
+        key = st.h
+        if key not in self._sps_pps:
+            self._sps_pps[key] = (
+                make_sps(self.width, st.h, coded_height=self.stripe_h)
+                + make_pps())
+        return self._sps_pps[key]
+
+    # -- encode ------------------------------------------------------------
+
+    def dispatch(self, rgb, fetch: bool = True) -> _H264Pending:
+        """One device step for the whole frame (every stripe); pair with
+        :meth:`harvest`. ``rgb`` is an (H, W, 3) uint8 array or a tensor on
+        the encoder's device. ``fetch=False`` starts no host copy (the
+        pipeline owns the transfer)."""
+        is_idr = any(st.need_idr for st in self.stripes)
+        if is_idr:
+            # optimistic clear so frames dispatched ahead don't re-IDR; an
+            # entropy failure at harvest re-arms the flag
+            for st in self.stripes:
+                st.need_idr = False
+        paint = np.zeros(self.n_stripes, np.int8)
+        if not is_idr:
+            for i, st in enumerate(self.stripes):
+                # candidacy from previous frames' history; optimistic mark
+                # so frames in flight don't re-trigger (damage clears it)
+                if (st.static_frames >= self.paint_over_trigger
+                        and not st.painted_over):
+                    paint[i] = 1
+                    st.painted_over = True
+
+        with self.stream_context():
+            if not isinstance(rgb, torch.Tensor):
+                rgb = self._upload(np.asarray(rgb, dtype=np.uint8))
+            if is_idr:
+                (flat16, self._prev_y, self._prev_cb, self._prev_cr,
+                 self._ref_y, self._ref_cb, self._ref_cr) = \
+                    dev.encode_frame_idr_rgb(
+                        rgb, self.qp, pad_h=self.pad_h, pad_w=self.pad_w,
+                        n_stripes=self.n_stripes, sh=self.stripe_h)
+                buf = head = None
+                fetch_arr = flat16
+            else:
+                (buf, head, flat16, self._prev_y, self._prev_cb,
+                 self._prev_cr, self._ref_y, self._ref_cb, self._ref_cr) = \
+                    dev.encode_frame_p_cavlc_rgb(
+                        rgb, self._prev_y, self._prev_cb, self._prev_cr,
+                        self._ref_y, self._ref_cb, self._ref_cr,
+                        self._upload(paint.astype(np.int32)),
+                        self.qp, self.paint_over_qp,
+                        pad_h=self.pad_h, pad_w=self.pad_w,
+                        n_stripes=self.n_stripes, sh=self.stripe_h,
+                        search=self.search,
+                        max_stripe_bytes=self._cavlc_msb,
+                        prefix=self._choose_prefix())
+                fetch_arr = head
+            copy = HostCopy(fetch_arr, self.stream) if fetch else None
+        qp_arr = np.where(paint != 0, self.paint_over_qp, self.qp)
+        return _H264Pending(fetch=copy, flat16=flat16, is_idr=is_idr,
+                            paint=paint, qp=qp_arr, buf=buf, head=head)
+
+    def _recover_undershoot(self, p: _H264Pending, host, needed: int):
+        """A fetch prefix that missed the frame's bytes: re-read the right
+        bucket of the full device buffer; then re-tier the estimate."""
+        if needed > len(host):
+            host = self._to_host(p.buf[:self._bucket(needed)])
+            self.d2h_refetch_bytes_total += host.nbytes
+        self._guess_bytes = self._bucket(
+            max(needed + needed // 2, self._fixed_bytes + 4096))
+        return host
+
+    def _refetch_overflow_rows(self, p: _H264Pending, damage, ovf):
+        """Exact flat16 rows of the emitting stripes whose device pack
+        overflowed (rare: |level| beyond the escape range, or a stripe past
+        its byte budget)."""
+        need = [i for i in range(self.n_stripes)
+                if ovf[i] and (damage[i] or p.paint[i])]
+        if not need:
+            return {}
+        rows = self._to_host(p.flat16[need])
+        self.d2h_refetch_bytes_total += rows.nbytes
+        return dict(zip(need, rows))
+
+    def harvest(self, p: _H264Pending,
+                host: Optional[np.ndarray] = None) -> List[H264Stripe]:
+        """Entropy-finish one dispatched frame. Must be called in dispatch
+        order. ``host`` supplies the fetched bytes when a pipeline owns the
+        transfer."""
+        if host is None:
+            host = p.fetch.numpy() if p.fetch is not None else \
+                self._to_host(p.flat16 if p.is_idr else p.head)
+        S = self.n_stripes
+        if p.is_idr:
+            levels16 = host
+            damage = np.ones(S, bool)
+            refetch = {}
+        else:
+            t_bits, base_words, damage, ovf = dcav.parse_cavlc_head(host, S)
+            # mirror the device's per-stripe word clip: an overflowing
+            # stripe records its unclipped t_bits but compacts at most V
+            # words
+            wc = np.minimum((t_bits + 31) // 32, self._cavlc_msb // 4)
+            needed = self._fixed_bytes + 4 * int(base_words[-1] + wc[-1])
+            host = self._recover_undershoot(p, host, needed)
+            refetch = self._refetch_overflow_rows(p, damage, ovf)
+
+        mb_w = self.pad_w // MB
+        mb_h = self.stripe_h // MB
+        jobs: List[tuple] = []
+        for i, st in enumerate(self.stripes):
+            if p.is_idr:
+                emit, is_key = True, True
+                st.static_frames = 0
+                st.painted_over = False
+            elif damage[i]:
+                emit, is_key = True, False
+                st.static_frames = 0
+                st.painted_over = False
+            elif p.paint[i]:
+                emit, is_key = True, False
+                st.static_frames += 1
+            else:
+                emit = False
+                st.static_frames += 1
+            if not emit:
+                continue
+            if not p.is_idr and i not in refetch:
+                # the device coded this stripe: header/escape glue only
+                jobs.append((i, st, is_key, int(p.qp[i]),
+                             dcav.payload_slice(host, S, base_words,
+                                                t_bits, i)))
+                continue
+            if not p.is_idr:
+                self.host_coded_stripes_total += 1
+            row = (levels16[i] if p.is_idr else refetch[i]).astype(np.int32)
+            parts, pos = [], 0
+            for shape, size in self._shapes:
+                parts.append(row[pos:pos + size].reshape(shape))
+                pos += size
+            jobs.append((i, st, is_key, int(p.qp[i]), tuple(parts)))
+
+        def run_one(job):
+            i, st, is_key, qp, work = job
+            if len(work) == 2:                     # (payload, nbits)
+                return dcav.assemble_p_slice(work[0], work[1], qp,
+                                             st.frame_num)
+            nals = encode_picture_nals_np(
+                *work, is_idr=is_key, mb_w=mb_w, mb_h=mb_h, qp=qp,
+                frame_num=0 if is_key else st.frame_num,
+                idr_pic_id=st.idr_pic_id)
+            return self._sps_pps_for(st) + nals if is_key else nals
+
+        t0 = time.perf_counter()
+        payloads = []
+        for job in jobs:
+            try:
+                payloads.append(run_one(job))
+            except Exception as exc:     # surfaced per stripe below
+                payloads.append(exc)
+        self.host_entropy_ms_total += (time.perf_counter() - t0) * 1000.0
+
+        out: List[H264Stripe] = []
+        for job, payload in zip(jobs, payloads):
+            i, st, is_key, qp, _ = job
+            if isinstance(payload, Exception):
+                # the device reference already advanced to a reconstruction
+                # the decoder will never see: resynchronize with an IDR
+                # instead of drifting every following P frame
+                self.entropy_errors_total += 1
+                logger.error("entropy coding failed for stripe %d; "
+                             "forcing IDR resync", i, exc_info=payload)
+                st.need_idr = True
+                continue
+            if is_key:
+                st.frame_num = 1
+                st.idr_pic_id = (st.idr_pic_id + 1) % 16
+                st.need_idr = False
+            else:
+                st.frame_num = (st.frame_num + 1) % 16
+            out.append(H264Stripe(y_start=st.y0, width=self.width,
+                                  height=st.h, annexb=payload,
+                                  is_key=is_key))
+        return out
+
+    def encode_frame(self, rgb) -> List[H264Stripe]:
+        """RGB (H, W, 3) uint8 -> encoded stripes (damaged/paint-over)."""
+        return self.harvest(self.dispatch(rgb))
+
+    def request_keyframe(self) -> None:
+        """Force IDR on every stripe (client join / pipeline reset)."""
+        for st in self.stripes:
+            st.need_idr = True
+
+    def stripe_ref(self, i: int):
+        """Host copies of stripe i's reference planes (conformance oracle)."""
+        sh = self.stripe_h
+        return (self._to_host(self._ref_y[i * sh:(i + 1) * sh]),
+                self._to_host(self._ref_cb[i * sh // 2:(i + 1) * sh // 2]),
+                self._to_host(self._ref_cr[i * sh // 2:(i + 1) * sh // 2]))

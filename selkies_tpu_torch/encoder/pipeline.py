@@ -1,5 +1,8 @@
-"""Pipelined JPEG encoder: overlaps device steps, device-to-host copies and
-host assembly (counterpart of ``selkies_tpu/encoder/pipeline.py:36-471``).
+"""Pipelined encoders: overlap device steps, device-to-host copies and host
+assembly (counterpart of ``selkies_tpu/encoder/pipeline.py``):
+:class:`PipelinedJpegEncoder` for the JPEG-stripe profile and
+:class:`PipelinedH264Encoder` (one frame per dispatch) for
+``x264enc-striped``.
 
 PyTorch launches asynchronously on a CUDA stream; the only blocking points
 are host reads. This wrapper keeps several frames in flight: submit(frame
@@ -15,6 +18,12 @@ damage) into the head of the bitstream buffer, and the pipeline fetches
 metadata + payload as ONE predicted-size read per frame (several frames
 per read with ``fetch_group``); only a size-prediction miss costs a second
 read. The prediction adapts to the recent largest frame plus headroom.
+
+:class:`_Pipeline` holds what both profiles share: the in-flight queue,
+staging tickets, grouped fetches, poll/flush/close and the telemetry. Each
+profile adds its device step (``_start``), the prefix it fetches
+(``_prefix``), how an item advances (``_advance``) and how it finishes
+(``_finish``).
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import numpy as np
 import torch
 
 from .jpeg import META_WORDS_PER_STRIPE, JpegStripeEncoder, StripeOutput, split_meta
-from .staging import StagingRing, StagingTicket
+from .staging import HostCopy, StagingRing, StagingTicket
 
 
 def _p50(samples) -> float:
@@ -39,151 +48,80 @@ def _p50(samples) -> float:
     return float(s[len(s) // 2])
 
 
-class _PipelineTelemetry:
-    """Dispatch/fetch instrumentation: bounded timing windows and the
-    in-flight high-water mark."""
-
-    def _init_telemetry(self) -> None:
-        self._dispatch_ms: deque = deque(maxlen=256)
-        self._fetch_wait_ms: deque = deque(maxlen=256)
-        self.inflight_batches_max = 0
-
-    def _note_inflight(self) -> None:
-        self.inflight_batches_max = max(self.inflight_batches_max,
-                                        self.inflight_batches)
-
-    def _record_dispatch(self, ms: float) -> None:
-        self._dispatch_ms.append(ms)
-        self._note_inflight()
-
-    def _record_fetch_wait(self, ms: float) -> None:
-        self._fetch_wait_ms.append(ms)
-
-    def _telemetry_stats(self) -> dict:
-        return {
-            "inflight_batches": self.inflight_batches,
-            "inflight_batches_max": self.inflight_batches_max,
-            "dispatch_p50_ms": round(_p50(self._dispatch_ms), 3),
-            "fetch_wait_p50_ms": round(_p50(self._fetch_wait_ms), 3),
-        }
-
-
-class _HostCopy:
-    """One device-to-host copy in flight: a pinned host tensor, filled by a
-    ``non_blocking`` copy on the encoder's stream, and the event recorded
-    after it. On the CPU the "copy" is the tensor itself and is done."""
-
-    __slots__ = ("host", "event")
-
-    def __init__(self, src: torch.Tensor, stream) -> None:
-        if stream is None:
-            self.host, self.event = src, None
-            return
-        self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        self.host.copy_(src, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record(stream)
-
-    def ready(self) -> bool:
-        return self.event is None or self.event.query()
-
-    def numpy(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
-
-
 @dataclass
 class _FetchGroup:
-    """One device-to-host read covering several frames' packed prefixes,
-    concatenated on the device."""
+    """One device-to-host read covering several frames' prefixes,
+    concatenated on the device; member i is ``host[start:start + n]`` for
+    ``offsets[i] = (start, n)`` (members may differ in size)."""
 
-    copy: _HostCopy
-    stride: int = 0
+    copy: HostCopy
+    offsets: Tuple[Tuple[int, int], ...]
     host: Optional[np.ndarray] = None
 
 
-@dataclass
-class _InFlight:
-    seq: int
-    paint_candidate: np.ndarray
-    packed: Any                     # full device buffer (meta head + words)
-    yq: Any
-    cbq: Any
-    crq: Any
-    group: Optional[_FetchGroup] = None
-    group_index: int = 0
-    guess_words: int = 0
-    meta_done: bool = False
-    emit: Optional[np.ndarray] = None
-    is_paint: Optional[np.ndarray] = None
-    refetch: Optional[_HostCopy] = None  # second read when prediction missed
-    meta: Tuple[Optional[np.ndarray], ...] = (None, None, None)
-    words_np: Optional[np.ndarray] = None
-    ticket: Optional[StagingTicket] = None
+class _Pipeline:
+    """Depth-N in-flight queue around one encoder. Items (one per frame)
+    carry ``seq``, ``ticket``, ``group`` and ``group_index``; they complete
+    strictly in submission order."""
 
-
-class PipelinedJpegEncoder(_PipelineTelemetry):
-    """Depth-N pipelined wrapper around a :class:`JpegStripeEncoder`.
-
-    Usage::
-
-        enc = PipelinedJpegEncoder(JpegStripeEncoder(w, h))
-        enc.submit(frame)                 # non-blocking dispatch
-        for seq, stripes in enc.poll():   # harvest whatever completed
-            ...
-        enc.flush()                       # drain everything (blocking)
-    """
-
-    def __init__(self, base: JpegStripeEncoder, depth: int = 8,
-                 fetch_group: int = 1) -> None:
+    def __init__(self, base, depth: int, fetch_group: int) -> None:
         self.base = base
         self.depth = depth
         self.fetch_group = max(1, fetch_group)
-        self._inflight: deque[_InFlight] = deque()
-        self._unfetched: List[_InFlight] = []
-        self._ready: List[Tuple[int, List[StripeOutput]]] = []
+        self._inflight: deque = deque()
+        self._unfetched: list = []
+        self._ready: List[Tuple[int, list]] = []
         self._seq = 0
-        self._meta_words = META_WORDS_PER_STRIPE * base.n_stripes
-        self._guess = base._packer.bucket_words(8192)
         self.d2h_bytes_total = 0
-        self.host_entropy_ms_total = 0.0
         self.frames_completed = 0
         #: frames rejected by try_submit because the pipeline was full
         self.frames_dropped_total = 0
         #: pinned staging lane sized so every in-flight frame can hold a
         #: slot without stalling the ring
         self._staging = StagingRing(depth=depth + 1, device=base.device)
-        self._init_telemetry()
+        self._dispatch_ms: deque = deque(maxlen=256)
+        self._fetch_wait_ms: deque = deque(maxlen=256)
+        self.inflight_batches_max = 0
 
-    @property
-    def inflight_batches(self) -> int:
-        """Fetch groups dispatched but not yet materialized on the host
-        (dispatched-but-ungrouped frames count as one forming group)."""
-        groups = {id(it.group) for it in self._inflight
-                  if it.group is not None and it.group.host is None}
-        return len(groups) + (1 if self._unfetched else 0)
+    # -- profile hooks -----------------------------------------------------
 
-    def stats(self) -> dict:
-        """Per-frame transfer/host-entropy gauges over the run so far."""
-        n = max(1, self.frames_completed)
-        return {
-            "frames": self.frames_completed,
-            "d2h_bytes_per_frame": self.d2h_bytes_total / n,
-            "host_entropy_ms_per_frame": self.host_entropy_ms_total / n,
-            "frames_dropped": self.frames_dropped_total,
-            "host_fallback_stripes": self.base.host_fallback_stripes_total,
-            "staging_stalls": self._staging.stalls_total,
-            **self._telemetry_stats(),
-        }
+    def _host_frame(self, frame) -> np.ndarray:
+        """The host array staged for one frame."""
+        return np.asarray(frame, dtype=np.uint8)
+
+    def _start(self, staged, ticket):
+        """Run the device step on the staged frame; return its item (seq
+        ``self._seq``), queued in ``_unfetched`` or fetched on its own."""
+        raise NotImplementedError
+
+    def _prefix(self, item) -> torch.Tensor:
+        """The device bytes of ``item`` its fetch group reads."""
+        raise NotImplementedError
+
+    def _advance(self, item, block: bool) -> bool:
+        """Move one item forward; True when it can be finished."""
+        raise NotImplementedError
+
+    def _finish(self, item) -> list:
+        """The frame's stripes, from its fetched bytes."""
+        raise NotImplementedError
+
+    def _advance_ready(self) -> None:
+        """Non-blocking progress on in-flight items before a dispatch."""
+
+    # -- queue -------------------------------------------------------------
 
     @property
     def n_inflight(self) -> int:
         return len(self._inflight)
 
-    def force_keyframe(self) -> None:
-        """Next frame emits every stripe (viewer join / pipeline reset)."""
-        self.base.force_keyframe()
+    @property
+    def inflight_batches(self) -> int:
+        """Fetch groups dispatched but not yet on the host (dispatched but
+        ungrouped frames count as one forming group)."""
+        groups = {id(it.group) for it in self._inflight
+                  if it.group is not None and it.group.host is None}
+        return len(groups) + (1 if self._unfetched else 0)
 
     def try_submit(self, frame) -> Optional[int]:
         """Dispatch one frame without ever blocking; None (frame dropped)
@@ -204,17 +142,204 @@ class PipelinedJpegEncoder(_PipelineTelemetry):
         b = self.base
         t0 = time.perf_counter()
         with b.stream_context():
-            frame, slot = self._staging.stage(
-                b._pad(np.asarray(frame, dtype=np.uint8)), stream=b.stream)
+            staged, slot = self._staging.stage(self._host_frame(frame),
+                                               stream=b.stream)
         ticket = StagingTicket(self._staging, slot)
         try:
-            return self._dispatch_staged(frame, ticket, t0)
+            item = self._start(staged, ticket)
         except Exception:
             # the slot must not leak busy (release is idempotent)
             ticket.release()
             raise
+        self._seq += 1
+        self._inflight.append(item)
+        if len(self._unfetched) >= self.fetch_group:
+            self._issue_fetch()
+        self._record_ms(self._dispatch_ms, t0)
+        self._note_inflight()
+        self._advance_ready()
+        return item.seq
 
-    def _dispatch_staged(self, frame, ticket, t0) -> int:
+    # -- fetch -------------------------------------------------------------
+
+    def _issue_fetch(self) -> None:
+        """Fetch the pending frames' prefixes in one group."""
+        items, self._unfetched = self._unfetched, []
+        if items:
+            self._start_fetch(items)
+
+    def _start_fetch(self, items) -> None:
+        """Concatenate the items' prefixes on the device and start ONE
+        non-blocking copy to pinned host memory for the lot."""
+        b = self.base
+        with b.stream_context():
+            parts = [self._prefix(it) for it in items]
+            arr = parts[0] if len(parts) == 1 else torch.cat(parts)
+            copy = HostCopy(arr, b.stream)
+        offsets, pos = [], 0
+        for p in parts:
+            offsets.append((pos, int(p.shape[0])))
+            pos += int(p.shape[0])
+        group = _FetchGroup(copy=copy, offsets=tuple(offsets))
+        for i, it in enumerate(items):
+            it.group = group
+            it.group_index = i
+        self._note_inflight()
+
+    def _fetched(self, item, block: bool) -> Optional[np.ndarray]:
+        """The item's bytes once its group is on the host; None while the
+        copy is still running (``block=False``)."""
+        if item.group is None:
+            if not block:
+                return None
+            self._issue_fetch()   # flush the partial group
+        g = item.group
+        if g.host is None:
+            if not block and not g.copy.ready():
+                return None
+            t0 = time.perf_counter()
+            g.host = g.copy.numpy()
+            self._record_ms(self._fetch_wait_ms, t0)
+            self.d2h_bytes_total += g.host.nbytes
+        start, n = g.offsets[item.group_index]
+        return g.host[start:start + n]
+
+    # -- harvest -----------------------------------------------------------
+
+    @staticmethod
+    def _release(item) -> None:
+        if item.ticket is not None:
+            item.ticket.release()
+            item.ticket = None
+
+    def _complete(self, item) -> Tuple[int, list]:
+        try:
+            out = self._finish(item)
+        finally:
+            # the item is already off the deque: even a failed finish
+            # must free its staging slot, or the ring stalls
+            self._release(item)
+        self.frames_completed += 1
+        return item.seq, out
+
+    def _drain_one(self) -> Tuple[int, list]:
+        item = self._inflight.popleft()
+        try:
+            self._advance(item, block=True)
+        except Exception:
+            self._release(item)
+            raise
+        return self._complete(item)
+
+    def poll(self, flush_partial: bool = True) -> List[Tuple[int, list]]:
+        """Harvest completed frames in order (non-blocking).
+
+        ``flush_partial`` ships a partly filled fetch group so frames are
+        never stranded when submissions pause. Results accumulate in
+        ``_ready`` and are swapped out only at the end: a harvest raising
+        mid-pass keeps the frames completed before it for the next call."""
+        if self._unfetched and flush_partial:
+            self._issue_fetch()
+        self._advance_ready()
+        while self._inflight and self._advance(self._inflight[0], block=False):
+            self._ready.append(self._complete(self._inflight.popleft()))
+        out, self._ready = self._ready, []
+        return out
+
+    def flush(self) -> List[Tuple[int, list]]:
+        """Drain the pipeline (blocking)."""
+        while self._inflight:
+            self._ready.append(self._drain_one())
+        out, self._ready = self._ready, []
+        return out
+
+    def close(self) -> None:
+        """Abandon in-flight work: drop device handles and release every
+        staging slot so a rebuilt pipeline never inherits a busy ring."""
+        self._inflight.clear()
+        self._unfetched.clear()
+        self._ready.clear()
+        self._staging.release_all()
+
+    # -- telemetry ---------------------------------------------------------
+
+    @staticmethod
+    def _record_ms(window: deque, t0: float) -> None:
+        window.append((time.perf_counter() - t0) * 1000.0)
+
+    def _note_inflight(self) -> None:
+        self.inflight_batches_max = max(self.inflight_batches_max,
+                                        self.inflight_batches)
+
+    def _pipeline_stats(self) -> dict:
+        return {
+            "frames": self.frames_completed,
+            "frames_dropped": self.frames_dropped_total,
+            "staging_stalls": self._staging.stalls_total,
+            "inflight_batches": self.inflight_batches,
+            "inflight_batches_max": self.inflight_batches_max,
+            "dispatch_p50_ms": round(_p50(self._dispatch_ms), 3),
+            "fetch_wait_p50_ms": round(_p50(self._fetch_wait_ms), 3),
+        }
+
+
+@dataclass
+class _InFlight:
+    seq: int
+    paint_candidate: np.ndarray
+    packed: Any                     # full device buffer (meta head + words)
+    yq: Any
+    cbq: Any
+    crq: Any
+    group: Optional[_FetchGroup] = None
+    group_index: int = 0
+    guess_words: int = 0
+    meta_done: bool = False
+    emit: Optional[np.ndarray] = None
+    is_paint: Optional[np.ndarray] = None
+    refetch: Optional[HostCopy] = None  # second read when prediction missed
+    meta: Tuple[Optional[np.ndarray], ...] = (None, None, None)
+    words_np: Optional[np.ndarray] = None
+    ticket: Optional[StagingTicket] = None
+
+
+class PipelinedJpegEncoder(_Pipeline):
+    """Depth-N pipelined wrapper around a :class:`JpegStripeEncoder`.
+
+    Usage::
+
+        enc = PipelinedJpegEncoder(JpegStripeEncoder(w, h))
+        enc.submit(frame)                 # non-blocking dispatch
+        for seq, stripes in enc.poll():   # harvest whatever completed
+            ...
+        enc.flush()                       # drain everything (blocking)
+    """
+
+    def __init__(self, base: JpegStripeEncoder, depth: int = 8,
+                 fetch_group: int = 1) -> None:
+        super().__init__(base, depth, fetch_group)
+        self._meta_words = META_WORDS_PER_STRIPE * base.n_stripes
+        self._guess = base._packer.bucket_words(8192)
+        self.host_entropy_ms_total = 0.0
+
+    def stats(self) -> dict:
+        """Per-frame transfer/host-entropy gauges over the run so far."""
+        n = max(1, self.frames_completed)
+        return {
+            **self._pipeline_stats(),
+            "d2h_bytes_per_frame": self.d2h_bytes_total / n,
+            "host_entropy_ms_per_frame": self.host_entropy_ms_total / n,
+            "host_fallback_stripes": self.base.host_fallback_stripes_total,
+        }
+
+    def force_keyframe(self) -> None:
+        """Next frame emits every stripe (viewer join / pipeline reset)."""
+        self.base.force_keyframe()
+
+    def _host_frame(self, frame) -> np.ndarray:
+        return self.base._pad(np.asarray(frame, dtype=np.uint8))
+
+    def _start(self, staged, ticket) -> _InFlight:
         b = self.base
         paint_candidate = b._paint_candidates().copy()
         # Optimistic mark: frames submitted while this one is in flight must
@@ -223,41 +348,18 @@ class PipelinedJpegEncoder(_PipelineTelemetry):
         b._painted |= paint_candidate
         with b.stream_context():
             packed, yq, cbq, crq = b._step(
-                frame, b._prev, b._recip_y, b._recip_c,
+                staged, b._prev, b._recip_y, b._recip_c,
                 b._qsel(paint_candidate), b._wm_scaled, b._alpha_inv)
         item = _InFlight(
             seq=self._seq, paint_candidate=paint_candidate,
             packed=packed, yq=yq, cbq=cbq, crq=crq, ticket=ticket,
         )
-        self._seq += 1
-        self._inflight.append(item)
         self._unfetched.append(item)
-        if len(self._unfetched) >= self.fetch_group:
-            self._issue_fetch()
-        self._record_dispatch((time.perf_counter() - t0) * 1000.0)
-        self._advance_ready()
-        return item.seq
+        return item
 
-    def _issue_fetch(self) -> None:
-        """Concatenate the pending frames' prefixes on the device and start
-        ONE non-blocking copy to pinned host memory for the lot."""
-        group_items, self._unfetched = self._unfetched, []
-        if not group_items:
-            return
-        b = self.base
-        guess = self._guess
-        stride = self._meta_words + guess
-        with b.stream_context():
-            slices = [it.packed[:stride] for it in group_items]
-            arr = slices[0] if len(slices) == 1 else torch.cat(slices)
-            group = _FetchGroup(copy=_HostCopy(arr, b.stream), stride=stride)
-        for i, it in enumerate(group_items):
-            it.group = group
-            it.group_index = i
-            it.guess_words = guess
-        self._note_inflight()
-
-    # -- pipeline stages ---------------------------------------------------
+    def _prefix(self, item: _InFlight) -> torch.Tensor:
+        item.guess_words = self._guess
+        return item.packed[:self._meta_words + self._guess]
 
     def _advance_ready(self) -> None:
         """Advance in-flight items in submission order (non-blocking).
@@ -272,23 +374,11 @@ class PipelinedJpegEncoder(_PipelineTelemetry):
             meta_ok = item.meta_done
 
     def _advance(self, item: _InFlight, block: bool) -> bool:
-        """Move one item forward; returns True when fully harvestable."""
         b = self.base
         if not item.meta_done:
-            if item.group is None:
-                if not block:
-                    return False
-                self._issue_fetch()   # flush the partial group
-            if not block and not item.group.copy.ready():
+            buf = self._fetched(item, block)
+            if buf is None:
                 return False
-            if item.group.host is None:
-                t0 = time.perf_counter()
-                item.group.host = item.group.copy.numpy()
-                self._record_fetch_wait((time.perf_counter() - t0) * 1000.0)
-                self.d2h_bytes_total += item.group.host.nbytes
-            stride = item.group.stride
-            buf = item.group.host[item.group_index * stride:
-                                  (item.group_index + 1) * stride]
             nbytes_np, base_np, ovf_np, damage_np = split_meta(
                 buf[: self._meta_words], b.n_stripes)
             emit, is_paint = b._decide_emits(
@@ -303,7 +393,7 @@ class PipelinedJpegEncoder(_PipelineTelemetry):
                 else:  # prediction miss: one more read for the full payload
                     bucket = b._packer.bucket_words(total)
                     with b.stream_context():
-                        item.refetch = _HostCopy(
+                        item.refetch = HostCopy(
                             item.packed[self._meta_words:
                                         self._meta_words + bucket], b.stream)
             # adapt: track the frame size plus one bucket of headroom
@@ -319,10 +409,6 @@ class PipelinedJpegEncoder(_PipelineTelemetry):
 
     def _finish(self, item: _InFlight) -> List[StripeOutput]:
         b = self.base
-        self.frames_completed += 1
-        if item.ticket is not None:
-            item.ticket.release()
-            item.ticket = None
         nbytes_np, base_np, ovf_np = item.meta
         emit, is_paint = item.emit, item.is_paint
         if not emit.any() or item.words_np is None:
@@ -335,46 +421,69 @@ class PipelinedJpegEncoder(_PipelineTelemetry):
         self.host_entropy_ms_total += (time.perf_counter() - t0) * 1000.0
         return out
 
-    def _drain_one(self) -> Tuple[int, List[StripeOutput]]:
-        item = self._inflight.popleft()
-        try:
-            self._advance(item, block=True)
-        except Exception:
-            # already off the deque: a failed fetch must still free its slot
-            if item.ticket is not None:
-                item.ticket.release()
-                item.ticket = None
-            raise
-        return item.seq, self._finish(item)
 
-    # -- public harvest ----------------------------------------------------
+@dataclass
+class _H264InFlight:
+    seq: int
+    pending: Any                     # h264._H264Pending
+    group: Optional[_FetchGroup] = None
+    group_index: int = 0
+    host: Optional[np.ndarray] = None
+    ticket: Optional[StagingTicket] = None
 
-    def poll(self, flush_partial: bool = True
-             ) -> List[Tuple[int, List[StripeOutput]]]:
-        """Harvest all completed frames (non-blocking, in order).
 
-        ``flush_partial`` issues any partially filled fetch group so frames
-        are never stranded when submissions pause."""
-        if self._unfetched and flush_partial:
-            self._issue_fetch()
-        self._advance_ready()
-        while self._inflight and self._advance(self._inflight[0], block=False):
-            item = self._inflight.popleft()
-            self._ready.append((item.seq, self._finish(item)))
-        out, self._ready = self._ready, []
-        return out
+class PipelinedH264Encoder(_Pipeline):
+    """Depth-N pipelined wrapper around :class:`~.h264.H264StripeEncoder`,
+    one frame per device dispatch, with grouped head fetches.
 
-    def flush(self) -> List[Tuple[int, List[StripeOutput]]]:
-        """Drain the pipeline (blocking)."""
-        while self._inflight:
-            self._ready.append(self._drain_one())
-        out, self._ready = self._ready, []
-        return out
+    Several P frames' device-CAVLC heads are concatenated on the device
+    and fetched in ONE non-blocking copy; an IDR frame fetches its exact
+    levels on its own (keyframes are rare: connect, reset, PLI). Frames
+    complete strictly in submission order: ``harvest`` advances per-stripe
+    frame numbers and damage history."""
 
-    def close(self) -> None:
-        """Abandon in-flight work: drop device handles and release every
-        staging slot so a rebuilt pipeline never inherits a busy ring."""
-        self._inflight.clear()
-        self._unfetched.clear()
-        self._ready.clear()
-        self._staging.release_all()
+    def __init__(self, base, depth: int = 8, fetch_group: int = 4) -> None:
+        super().__init__(base, depth, fetch_group)
+
+    def stats(self) -> dict:
+        """Per-frame transfer/host-entropy gauges over the run so far: D2H
+        counts grouped head reads, IDR level reads and the encoder's
+        undershoot/overflow re-reads."""
+        n = max(1, self.frames_completed)
+        b = self.base
+        return {
+            **self._pipeline_stats(),
+            "d2h_bytes_per_frame":
+                (self.d2h_bytes_total + b.d2h_refetch_bytes_total) / n,
+            "host_entropy_ms_per_frame": b.host_entropy_ms_total / n,
+            "entropy_errors": b.entropy_errors_total,
+            "host_coded_stripes": b.host_coded_stripes_total,
+        }
+
+    def request_keyframe(self) -> None:
+        self.base.request_keyframe()
+
+    #: the async driver's name for it (the server calls it when a viewer
+    #: joins a running display)
+    force_keyframe = request_keyframe
+
+    def _start(self, staged, ticket) -> _H264InFlight:
+        p = self.base.dispatch(staged, fetch=False)
+        item = _H264InFlight(seq=self._seq, pending=p, ticket=ticket)
+        if p.is_idr:
+            self._start_fetch([item])    # its exact levels, on their own
+        else:
+            self._unfetched.append(item)
+        return item
+
+    def _prefix(self, item: _H264InFlight) -> torch.Tensor:
+        p = item.pending
+        return p.flat16 if p.is_idr else p.head
+
+    def _advance(self, item: _H264InFlight, block: bool) -> bool:
+        if item.host is None:
+            item.host = self._fetched(item, block)
+        return item.host is not None
+
+    def _finish(self, item: _H264InFlight) -> list:
+        return self.base.harvest(item.pending, host=item.host)

@@ -1,5 +1,7 @@
-"""Host-to-device staging ring (counterpart of ``StagingRing``/``StagingTicket``
-in ``selkies_tpu/encoder/h264_device.py``).
+"""Host/device transfers of the encoders: the host-to-device staging ring
+(counterpart of ``StagingRing``/``StagingTicket`` in
+``selkies_tpu/encoder/h264_device.py``) and :class:`HostCopy`, the
+device-to-host copy that stands in for JAX's ``copy_to_host_async``.
 
 The JAX ring donates device buffers so an upload can overlap the previous
 frame's encode. PyTorch has no donation; the port gets the same overlap
@@ -142,3 +144,29 @@ class StagingTicket:
         if self._refs <= 0 and self._ticket is not None:
             self._ring.release(self._ticket)
             self._ticket = None
+
+
+class HostCopy:
+    """One device-to-host copy in flight: a pinned host tensor, filled by a
+    ``non_blocking`` copy on the encoder's stream, and the event recorded
+    after it. On the CPU (``stream`` None) the "copy" is the tensor itself
+    and is done."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, src: torch.Tensor, stream) -> None:
+        if stream is None:
+            self.host, self.event = src, None
+            return
+        self.host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        self.host.copy_(src, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(stream)
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()

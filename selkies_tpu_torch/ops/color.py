@@ -50,6 +50,33 @@ def rgb_to_ycbcr(rgb: torch.Tensor):
     return y, cb, cr
 
 
+def rgb_to_ycbcr_fused(rgb: torch.Tensor):
+    """[..., H, W, 3] uint8 RGB -> (Y, Cb, Cr) float32, with the
+    multiply-adds fused as XLA:CPU's jit fuses them in the JAX package's
+    compiled steps: ``fma(m2, b, fma(m0, r, m1 * g)) + offset``, each fused
+    multiply-add rounded once to float32.
+
+    The H.264 profile rounds these planes to integers, where a last-bit
+    difference shows, so it takes this form to equal the JAX encoder byte
+    for byte. Each step is exact in float64 (an 8-bit integer times a
+    float32 coefficient, plus a float32 below 512, needs under 40 bits), so
+    one rounding to float32 after it is the fused operation's result, on
+    the CPU and on the card alike."""
+    x = rgb.to(torch.float64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    m = _rgb2ycc(x.device).to(torch.float64)
+
+    def f32(v):
+        return v.to(torch.float32).to(torch.float64)
+
+    out = []
+    for i, off in enumerate((0.0, 128.0, 128.0)):
+        acc = f32(m[i, 0] * r + f32(m[i, 1] * g))
+        acc = f32(m[i, 2] * b + acc)
+        out.append((acc + off).to(torch.float32))
+    return tuple(out)
+
+
 def subsample_420(plane: torch.Tensor) -> torch.Tensor:
     """2x2 mean-pool chroma subsampling: [..., H, W] → [..., H/2, W/2].
 

@@ -6,7 +6,8 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What this slice keeps:
   websockets`` and the ``server_settings`` JSON out;
 * starting a display on ``SETTINGS`` and running its capture loop: source
   frames → the pipelined encoder's ``try_submit``/``poll`` → 0x03 JPEG
-  stripes fanned out to the display's viewers;
+  stripes, or 0x04 H.264 stripes for ``x264enc-striped``, fanned out to
+  the display's viewers;
 * ``CLIENT_FRAME_ACK`` and ``_f`` into the display's
   :class:`~.backpressure.BackpressureState`, re-evaluated every
   ``CHECK_INTERVAL_S``; ``START_VIDEO``/``STOP_VIDEO``;
@@ -38,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Set
 
 from ..protocol.wire import (
     FrameId,
+    pack_h264_stripe,
     pack_jpeg_stripe,
     parse_text_message,
 )
@@ -49,7 +51,6 @@ logger = logging.getLogger("selkies_tpu_torch.server")
 #: largest accepted client display dimension (one frame stays < ~200 MB)
 MAX_DISPLAY_DIM = 8192
 
-H264_PROFILES = ("x264enc", "x264enc-striped")
 
 
 def _clamp_dim(v: int) -> int:
@@ -80,19 +81,38 @@ def _ws_broadcast(targets, message) -> None:
 def default_encoder_factory(width: int, height: int, settings: Settings,
                             overrides: Optional[Dict[str, Any]] = None,
                             device=None):
-    """The served encoder for one display: ``jpeg`` is the pipelined
-    JPEG-stripe encoder behind the async driver. The H.264 profiles are not
-    ported yet and raise; nothing silently serves JPEG in their place."""
+    """The served encoder for one display, behind the async driver:
+    ``jpeg`` is the pipelined JPEG-stripe encoder, ``x264enc-striped`` the
+    pipelined striped H.264 encoder (one frame per dispatch, device CAVLC).
+    The full-frame ``x264enc`` profile is not ported yet and raises;
+    nothing silently serves another profile in its place."""
     from ..encoder.async_driver import AsyncEncodeDriver
-    from ..encoder.jpeg import JpegStripeEncoder
-    from ..encoder.pipeline import PipelinedJpegEncoder
+    from ..encoder.pipeline import PipelinedH264Encoder, PipelinedJpegEncoder
 
     ov = overrides or {}
     profile = str(ov.get("encoder", settings.encoder))
-    if profile in H264_PROFILES:
-        raise NotImplementedError("x264enc profiles are not ported yet")
+    if profile == "x264enc":
+        raise NotImplementedError("the x264enc profile is not ported yet")
+    if profile == "x264enc-striped":
+        from ..encoder.h264 import H264StripeEncoder
+
+        if str(settings.watermark_path):
+            logger.warning("watermark is implemented in the JPEG profile "
+                           "only; x264enc-striped ignores watermark_path")
+        base = H264StripeEncoder(
+            width - width % 2, height - height % 2,
+            stripe_height=int(settings.tpu_stripe_height),
+            qp=int(ov.get("h264_crf", settings.h264_crf.default)),
+            paint_over_qp=int(ov.get("h264_paintover_crf",
+                                     settings.h264_paintover_crf.default)),
+            device=device,
+        )
+        return AsyncEncodeDriver(PipelinedH264Encoder(base, depth=4,
+                                                      fetch_group=2))
     if profile != "jpeg":
         raise ValueError(f"unknown encoder profile {profile!r}")
+    from ..encoder.jpeg import JpegStripeEncoder
+
     base = JpegStripeEncoder(
         width, height,
         stripe_height=int(settings.tpu_stripe_height),
@@ -113,6 +133,15 @@ def default_source_factory(width: int, height: int, fps: float):
     from ..capture.synthetic import SyntheticSource
 
     return SyntheticSource(width, height, fps, pattern="desktop")
+
+
+def _pack_stripe(frame_id: int, s) -> bytes:
+    """Wire-pack one encoded stripe by profile: JPEG stripes -> 0x03,
+    striped H.264 -> 0x04 (the client's per-stripe decoders)."""
+    if hasattr(s, "annexb"):
+        return pack_h264_stripe(frame_id, s.y_start, s.width, s.height,
+                                s.annexb, s.is_key)
+    return pack_jpeg_stripe(frame_id, s.y_start, s.jpeg)
 
 
 @dataclass
@@ -360,7 +389,7 @@ class DataStreamingServer:
             _ws_broadcast(targets, message)
 
     async def _capture_loop(self, st: DisplayState) -> None:
-        """Source frames → pipelined encode → 0x03 stripe fan-out.
+        """Source frames → pipelined encode → 0x03/0x04 stripe fan-out.
 
         Frame ids restart at 1 on every start, announced with
         ``PIPELINE_RESETTING`` so the client and the backpressure gate drop
@@ -430,7 +459,7 @@ class DataStreamingServer:
         if not viewers:
             return
         for s in stripes:
-            _ws_broadcast(viewers, pack_jpeg_stripe(frame_id, s.y_start, s.jpeg))
+            _ws_broadcast(viewers, _pack_stripe(frame_id, s))
 
     async def _backpressure_loop(self, st: DisplayState) -> None:
         while True:

@@ -1,11 +1,11 @@
 """Server entry point wiring (counterpart of ``selkies_tpu/server/main.py``).
 
 Where the JAX server enables XLA's persistent compile cache, the port
-builds its CUDA kernels at first use (``build/torch_kernels/``, reused
-across restarts while the sources are unchanged). The warm-up stays in the
-background: it builds the kernels and encodes one 1080p frame in a worker
-thread while the server starts, so the first client does not pay for
-either. A warm-up that fails ends the process with its error; the server
+builds its CUDA kernels (and the H.264 profile's g++ coder) at first use
+(``build/torch_kernels/``, reused across restarts while the sources are
+unchanged). The warm-up stays in the background: it builds the configured
+profile's kernels and encodes two 1080p frames in a worker thread while
+the server starts, so the first client does not pay for either. A warm-up that fails ends the process with its error; the server
 never runs on without a working encoder.
 """
 
@@ -32,13 +32,16 @@ def run(settings: Settings, device=None) -> int:
 
 def warm_default_geometry(settings: Settings, device=None,
                           width: int = 1920, height: int = 1080) -> None:
-    """Build the kernels and encode one frame at the default geometry
-    (blocking); raises the encoder's error if either fails."""
+    """Build the configured profile's kernels and encode two frames at the
+    default geometry (blocking): for ``x264enc-striped`` the first is an
+    IDR (the host coder's build) and the second a P frame (the motion
+    kernel's build). Raises the encoder's error if any of it fails."""
     enc = default_encoder_factory(width, height, settings, device=device)
     errors: list = []
     enc.on_error = errors.append
     try:
-        enc.submit(np.zeros((height, width, 3), np.uint8))
+        for _ in range(2):
+            enc.submit(np.zeros((height, width, 3), np.uint8))
         enc.flush()
     finally:
         enc.close()

@@ -1,12 +1,13 @@
-"""The port's CUDA kernel and encoder on the card (skip without one).
+"""The port's CUDA kernels and encoders on the card (skip without one).
 
-These need a CUDA card: the hand-written kernel has no CPU mode. They import
+These need a CUDA card: the hand-written kernels have no CPU mode. They import
 no jax, so they run on the machine with the card as they are:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Each holds the card against the port's plain PyTorch version, which
-tests/test_torch_ops.py holds equal to the JAX package on the CPU.
+tests/test_torch_ops.py and tests/test_torch_h264*.py hold equal to the
+JAX package on the CPU.
 """
 
 import numpy as np
@@ -14,9 +15,12 @@ import pytest
 import torch
 
 from selkies_tpu_torch.capture.synthetic import SyntheticSource
+from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
 from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder, _recip
 from selkies_tpu_torch.ops.dct_quant import (dct8_quant_zigzag,
                                              dct8_quant_zigzag_plain)
+from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+from selkies_tpu_torch.ops.motion import full_search_mc
 from selkies_tpu_torch.ops.quant import quality_scaled_tables
 
 pytestmark = pytest.mark.cuda
@@ -87,3 +91,56 @@ def test_encoder_on_card_equals_cpu(cuda_device):
         assert [(s.y_start, s.is_paintover, s.jpeg) for s in a] == \
             [(s.y_start, s.is_paintover, s.jpeg) for s in b]
     assert gpu.host_fallback_stripes_total == cpu.host_fallback_stripes_total > 0
+
+
+@pytest.mark.parametrize("kind", ["scroll", "noise"])
+def test_me_mc_kernel_equals_plain_at_1080p_stripes(cuda_device, kind):
+    """17 stripes of 64x1920: true motion (a scrolled desktop) and noise
+    (ties everywhere); mv and the three predictions exactly equal."""
+    src = SyntheticSource(1920, 1088, pattern=kind, seed=5)
+    a, b = src.next_frame()[..., 1], src.next_frame()[..., 1]
+    rng = np.random.default_rng(6)
+    cur = torch.from_numpy(np.ascontiguousarray(a).reshape(17, 64, 1920))
+    ref = torch.from_numpy(np.ascontiguousarray(b).reshape(17, 64, 1920))
+    cb, cr = (torch.from_numpy(rng.integers(0, 256, (17, 32, 960),
+                                            dtype=np.uint8))
+              for _ in range(2))
+    args = [t.to(cuda_device) for t in (cur, ref, cb, cr)]
+    before = me_mc_stripes.launches
+    got = me_mc_stripes(*args)
+    torch.cuda.synchronize()
+    assert me_mc_stripes.launches == before + 1
+    want = full_search_mc(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_me_mc_kernel_rejects_what_it_does_not_take(cuda_device):
+    cur = torch.zeros((2, 32, 64), dtype=torch.uint8, device=cuda_device)
+    cb = torch.zeros((2, 16, 32), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(TypeError):
+        me_mc_stripes(cur.int(), cur.int(), cb, cb)
+    with pytest.raises(ValueError):
+        me_mc_stripes(cur, cur, cb.cpu(), cb)
+    strided = cur.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        me_mc_stripes(strided, cur, cb, cb)
+
+
+def test_h264_encoder_on_card_equals_cpu(cuda_device):
+    """IDR, scrolled P frames, static frames to paint-over and a keyframe
+    request at 1920x256: the card's Annex-B stripes equal the CPU's."""
+    src = SyntheticSource(1920, 256, pattern="scroll", seed=7)
+    frames = [src.next_frame() for _ in range(4)]
+    frames += [frames[-1]] * 4
+    kw = dict(stripe_height=64, paint_over_trigger_frames=2)
+    cpu = H264StripeEncoder(1920, 256, device="cpu", **kw)
+    gpu = H264StripeEncoder(1920, 256, device=cuda_device, **kw)
+    for k, f in enumerate(frames):
+        if k == 6:
+            cpu.request_keyframe()
+            gpu.request_keyframe()
+        a, b = cpu.encode_frame(f), gpu.encode_frame(f)
+        assert [(s.y_start, s.is_key, s.annexb) for s in a] == \
+            [(s.y_start, s.is_key, s.annexb) for s in b]
+    assert gpu.entropy_errors_total == 0

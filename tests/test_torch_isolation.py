@@ -54,6 +54,10 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.encoder.pipeline\n"
         "import selkies_tpu_torch.encoder.state\n"
         "import selkies_tpu_torch.ops.dct_quant\n"
+        "import selkies_tpu_torch.ops.me_mc\n"
+        "import selkies_tpu_torch.native\n"
+        "import selkies_tpu_torch.encoder.h264\n"
+        "import selkies_tpu_torch.encoder.device_cavlc\n"
         "from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder\n"
         "import numpy as np\n"
         "enc = JpegStripeEncoder(32, 16, stripe_height=16, device='cpu')\n"
@@ -68,13 +72,48 @@ def test_port_imports_with_jax_and_jax_package_blocked():
     assert "isolated" in out.stdout
 
 
+def test_h264_path_opens_and_loads_nothing_of_the_jax_package():
+    """An audit hook records every file opened and every library loaded
+    while the port encodes an IDR and a P frame of x264enc-striped (the
+    host coder is built and loaded then): none lies under selkies_tpu/,
+    whose prebuilt _libselkies_cavlc.so the port must not use."""
+    code = (
+        "import os, sys\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen') and args and \\\n"
+        "            isinstance(args[0], (str, bytes)):\n"
+        "        seen.append(os.fsdecode(args[0]))\n"
+        "sys.addaudithook(hook)\n"
+        "import numpy as np\n"
+        "from selkies_tpu_torch.encoder.h264 import H264StripeEncoder\n"
+        "enc = H264StripeEncoder(64, 32, stripe_height=32, device='cpu')\n"
+        "f = np.random.default_rng(0).integers(0, 256, (32, 64, 3), np.uint8)\n"
+        "assert enc.encode_frame(f)[0].is_key\n"
+        "assert not enc.encode_frame(np.roll(f, 2, 0))[0].is_key\n"
+        "jax_pkg = os.path.realpath('selkies_tpu') + os.sep\n"
+        "bad = [p for p in seen if os.path.realpath(p).startswith(jax_pkg)]\n"
+        "assert not bad, bad\n"
+        "assert any('libcavlc_host_' in p for p in seen), seen\n"
+        "print('isolated', len(seen))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "isolated" in out.stdout
+
+
 def test_encoder_without_card_or_device_raises(monkeypatch):
     from selkies_tpu_torch import resolve_device
     from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder
 
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         JpegStripeEncoder(64, 64)
+    with pytest.raises(RuntimeError):
+        H264StripeEncoder(64, 64)
     with pytest.raises(RuntimeError):
         resolve_device(None)
     with pytest.raises(RuntimeError):
@@ -98,6 +137,8 @@ def test_kernel_build_is_lazy_and_sources_ship():
     the CUDA sources sit in the package for the build at first use."""
     code = ("import selkies_tpu_torch.server.main\n"
             "import selkies_tpu_torch.ops.dct_quant\n"
+            "import selkies_tpu_torch.ops.me_mc\n"
+            "import selkies_tpu_torch.encoder.h264\n"
             "from selkies_tpu_torch import _build\n"
             "assert _build._loaded == {} and _build.ptxas_report == {}\n"
             "print(_build.kernel_dir())\n")
@@ -106,3 +147,5 @@ def test_kernel_build_is_lazy_and_sources_ship():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("build/torch_kernels")
     assert (PORT / "csrc" / "dct_quant.cu").is_file()
+    assert (PORT / "csrc" / "me_mc.cu").is_file()
+    assert (PORT / "native" / "cavlc.cpp").is_file()

@@ -3,7 +3,8 @@
 An in-process client (async send/close, async iteration, send_nowait)
 stands in for the browser; no websockets package is needed. The port's
 first-frame 0x03 stripes must equal the JAX server's for the same
-synthetic source, byte for byte."""
+synthetic source, byte for byte, and its first 0x04 frame of the
+x264enc-striped profile the JAX encoder's."""
 
 import asyncio
 import json
@@ -188,11 +189,23 @@ def test_stop_and_start_video():
 
 
 def test_h264_profiles_are_not_served():
+    """x264enc (full frame) is not ported and raises; x264enc-striped is
+    served by the pipelined H.264 encoder behind the async driver."""
     s = Settings(argv=[], env=dict(ENV))
-    for profile in tds.H264_PROFILES:
-        with pytest.raises(NotImplementedError):
-            tds.default_encoder_factory(64, 64, s, {"encoder": profile},
-                                        device="cpu")
+    with pytest.raises(NotImplementedError):
+        tds.default_encoder_factory(64, 64, s, {"encoder": "x264enc"},
+                                    device="cpu")
+    enc = tds.default_encoder_factory(64, 64, s,
+                                      {"encoder": "x264enc-striped"},
+                                      device="cpu")
+    try:
+        enc.submit(np.zeros((64, 64, 3), np.uint8))
+        out = enc.flush()
+        assert len(out) == 1 and len(out[0][1]) == 1
+        assert out[0][1][0].is_key and out[0][1][0].annexb[:4] == b"\0\0\0\1"
+    finally:
+        enc.close()
+        enc.join(10.0)
     enc = tds.default_encoder_factory(64, 64, s, device="cpu")
     try:
         enc.submit(np.zeros((64, 64, 3), np.uint8))
@@ -200,6 +213,53 @@ def test_h264_profiles_are_not_served():
         assert len(out) == 1 and len(out[0][1]) == 1
     finally:
         enc.close()
+
+
+H264_ENV = dict(ENV, SELKIES_ENCODER="x264enc-striped")
+
+
+def test_x264enc_striped_served_as_0x04_identical_to_jax_encoder():
+    """x264enc-striped through ws_handler: 0x04 stripes, the first frame's
+    wire bytes equal the JAX package's encoder on the same source frame,
+    later frames arrive and are ACKed."""
+    from selkies_tpu.encoder.h264 import H264StripeEncoder as JaxEncoder
+    from selkies_tpu.protocol import pack_h264_stripe as jax_pack
+
+    first = _source(W, H, 30).next_frame()
+    s = Settings(argv=[], env=dict(H264_ENV))
+    jenc = JaxEncoder(W, H, stripe_height=64, qp=s.h264_crf.default,
+                      paint_over_qp=s.h264_paintover_crf.default)
+    want = [jax_pack(1, st.y_start, st.width, st.height, st.annexb,
+                     st.is_key) for st in jenc.encode_frame(first)]
+
+    async def run():
+        server = tds.DataStreamingServer(
+            Settings(argv=[], env=dict(H264_ENV)), source_factory=_source,
+            device="cpu", host="127.0.0.1")
+        ws = Client()
+        task = asyncio.create_task(server.ws_handler(ws))
+        assert await _wait(lambda: len(ws.sent) >= 2)
+        ws.feed("SETTINGS," + json.dumps(SETTINGS))
+        assert await _wait(lambda: len({unpack_binary(m).frame_id
+                                        for m in ws.binary()}) >= 3)
+        frames = {}
+        for m in ws.binary():
+            assert m[0] == 0x04
+            frames.setdefault(unpack_binary(m).frame_id, []).append(bytes(m))
+        for fid in sorted(frames):
+            ws.feed(f"CLIENT_FRAME_ACK {fid}")
+        st = server.display_clients["primary"]
+        assert await _wait(lambda: st.bp.acknowledged_frame_id >= 3)
+        await _close(server, ws, task)
+        return frames
+
+    frames = asyncio.run(run())
+    assert frames[1] == want
+    assert [m[1] for m in frames[1]] == [1, 1]          # keyframe flags
+    for fid in sorted(frames)[1:]:
+        for m in frames[fid]:
+            f = unpack_binary(m)
+            assert f.payload[:4] == b"\0\0\0\1" and m[1] == 0
 
 
 def test_server_without_card_or_device_raises(monkeypatch):
