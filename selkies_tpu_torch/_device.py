@@ -8,11 +8,15 @@ for, construction raises — the port never carries on quietly on the CPU.
 
 from __future__ import annotations
 
-from typing import Union
+import threading
+from typing import Dict, Optional, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+_streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+_streams_lock = threading.Lock()
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -31,3 +35,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
+
+def encoder_stream(device: torch.device) -> "Optional[torch.cuda.Stream]":
+    """The one CUDA stream every encoder on ``device`` runs on (``None`` on
+    the CPU), made at first use.
+
+    One stream per card, not per encoder: PyTorch's caching allocator hands
+    a freed block only to later allocations on the stream it was freed on,
+    so blocks freed on a closed encoder's own stream would stay reserved
+    for good. On one shared stream they go back to the pool the next
+    encoder draws from."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _streams_lock:
+        stream = _streams.get(device)
+        if stream is None:
+            stream = torch.cuda.Stream(device=device)
+            _streams[device] = stream
+        return stream

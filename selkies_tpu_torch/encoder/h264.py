@@ -30,7 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import encoder_stream, resolve_device
 from ..native import cavlc_lib
 from . import device_cavlc as dcav
 from . import h264_device as dev
@@ -259,9 +259,11 @@ class H264StripeEncoder:
         self.n_stripes = len(self.stripes)
         self.pad_h = self.n_stripes * sh
         self._sps_pps: Dict[int, bytes] = {}
-        #: the one stream every device call of this encoder runs on
-        self.stream = (torch.cuda.Stream(device=self.device)
-                       if self.device.type == "cuda" else None)
+        #: the stream every device call of this encoder runs on (the async
+        #: driver dispatches from its own thread, and PyTorch's current
+        #: stream is per thread): the card's one encoder stream, shared by
+        #: every encoder on it so their freed memory is reused
+        self.stream = encoder_stream(self.device)
 
         with self.stream_context():
             u8 = dict(dtype=torch.uint8, device=self.device)

@@ -2,7 +2,7 @@
 
 The frame is split into horizontal stripes; one device step per frame does
 damage detection, RGB→YCbCr, 4:2:0, the fused DCT+quant+zigzag kernel
-(three launches: Y, Cb, Cr) and the Huffman packer, and leaves one
+(one launch for Y, Cb and Cr) and the Huffman packer, and leaves one
 ``[meta | bitstream]`` buffer the host fetches with a single read. The host
 then ships only the stripes that changed (damage gating), and re-emits a
 static stripe once at the paint-over quality after
@@ -22,7 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import encoder_stream, resolve_device
 from ..ops.color import rgb_to_ycbcr, subsample_420
 from ..ops.dct_quant import dct8_quant_zigzag
 from ..ops.quant import quality_scaled_tables
@@ -87,9 +87,8 @@ def encode_body(frame: torch.Tensor, prev: torch.Tensor,
     dev = frame.device
     row_y = qsel[torch.arange(h // 8, device=dev) // (stripe_h // 8)]
     row_c = qsel[torch.arange(h // 16, device=dev) // (stripe_h // 16)]
-    yq = dct8_quant_zigzag(y, recip_y, row_y.contiguous())
-    cbq = dct8_quant_zigzag(cb.contiguous(), recip_c, row_c.contiguous())
-    crq = dct8_quant_zigzag(cr.contiguous(), recip_c, row_c.contiguous())
+    yq, cbq, crq = dct8_quant_zigzag(
+        [(y, recip_y, row_y), (cb, recip_c, row_c), (cr, recip_c, row_c)])
     return yq, cbq, crq, damage, frame
 
 
@@ -171,11 +170,11 @@ class JpegStripeEncoder:
         self.damage_threshold = int(damage_threshold)
         self.use_paint_over_quality = use_paint_over_quality
         self.paint_over_trigger_frames = int(paint_over_trigger_frames)
-        #: the one stream every device call of this encoder runs on (the
-        #: async driver dispatches from its own thread, and PyTorch's
-        #: current stream is per thread)
-        self.stream = (torch.cuda.Stream(device=self.device)
-                       if self.device.type == "cuda" else None)
+        #: the stream every device call of this encoder runs on (the async
+        #: driver dispatches from its own thread, and PyTorch's current
+        #: stream is per thread): the card's one encoder stream, shared by
+        #: every encoder on it so their freed memory is reused
+        self.stream = encoder_stream(self.device)
 
         #: overflowed stripes host-coded from their coefficients
         self.host_fallback_stripes_total = 0
@@ -205,6 +204,9 @@ class JpegStripeEncoder:
         return torch.cuda.stream(self.stream)
 
     def synchronize(self) -> None:
+        """Wait for the encoder's stream. The stream is shared by every
+        encoder on the card, so this also waits for their queued work:
+        correct, but slower than waiting for this encoder's alone."""
         if self.stream is not None:
             self.stream.synchronize()
 

@@ -59,6 +59,8 @@ def load_encoder_state(enc, arrays: Dict[str, np.ndarray]) -> None:
     enc._set_tables(qy, qc)
     with enc.stream_context():
         enc._prev.copy_(torch.from_numpy(np.array(prev)))
+    # the stream is the card's one encoder stream: this also waits for
+    # other encoders' queued work (correct, only slower)
     enc.synchronize()
     enc._static_frames[:] = static
     enc._painted[:] = painted

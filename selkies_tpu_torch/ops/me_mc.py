@@ -3,8 +3,9 @@ plain version.
 
 Replaces ``selkies_tpu/ops/pallas_me.py:me_mc_stripes``. The kernel is
 ``csrc/me_mc.cu`` (CUDA C++ for sm_90a, built by nvcc at first use and
-bound with ctypes); its source says what bounds it (byte-SIMD integer
-instructions: ~0.65 G per 1080p frame) and how its design follows.
+bound with ctypes): one launch searches and predicts. Its source says what
+bounds it (byte-SIMD integer instructions: 1.31 G byte differences per
+1080p frame) and how its design follows.
 
 :func:`me_mc_stripes` is the wrapper the encoder calls. A CPU tensor goes
 through the plain version, :func:`~.motion.full_search_mc`; a CUDA tensor
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .h264_transform import const
@@ -33,7 +35,7 @@ def _library():
 
     lib = load_library(_STEM)
     fn = lib.me_mc_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 5)
     fn.restype = ctypes.c_int
     return fn
@@ -42,6 +44,17 @@ def _library():
 @functools.lru_cache(maxsize=None)
 def _offset_table(search: int):
     return _offsets(search)
+
+
+@functools.lru_cache(maxsize=None)
+def _rank_table(search: int) -> np.ndarray:
+    """rank[dy + search, dx + search] = index of (dy, dx) in the sorted
+    offset table: the kernel's key takes its low bits from it."""
+    n = 2 * search + 1
+    rank = np.zeros((n, n), np.int32)
+    offs = _offset_table(search)
+    rank[offs[:, 0] + search, offs[:, 1] + search] = np.arange(len(offs))
+    return rank
 
 
 def me_mc_stripes(cur: torch.Tensor, ref: torch.Tensor,
@@ -75,11 +88,14 @@ def me_mc_stripes(cur: torch.Tensor, ref: torch.Tensor,
             raise TypeError(f"{name} must be uint8, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     major, minor = torch.cuda.get_device_capability(dev)
     if (major, minor) != (9, 0):
         raise RuntimeError(f"me_mc.cu is built for sm_90a; device {dev} "
                            f"is sm_{major}{minor}")
     fn = _library()
+    ranks = const(_rank_table(search), dev)
     offs = const(_offset_table(search), dev)
     mv = torch.empty((S, h // MB, w // MB, 2), dtype=torch.int32, device=dev)
     pred_y = torch.empty_like(cur)
@@ -87,7 +103,7 @@ def me_mc_stripes(cur: torch.Tensor, ref: torch.Tensor,
     pred_cr = torch.empty_like(ref_cr)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(cur.data_ptr(), ref.data_ptr(), ref_cb.data_ptr(),
-             ref_cr.data_ptr(), offs.data_ptr(), offs.shape[0], search,
+             ref_cr.data_ptr(), ranks.data_ptr(), offs.data_ptr(), search,
              S, h, w, mv.data_ptr(), pred_y.data_ptr(), pred_cb.data_ptr(),
              pred_cr.data_ptr(), stream)
     if err != 0:

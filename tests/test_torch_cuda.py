@@ -10,10 +10,13 @@ tests/test_torch_ops.py and tests/test_torch_h264*.py hold equal to the
 JAX package on the CPU.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
 
+from selkies_tpu_torch._device import encoder_stream
 from selkies_tpu_torch.capture.synthetic import SyntheticSource
 from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
 from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder, _recip
@@ -50,7 +53,7 @@ def test_kernel_matches_plain(cuda_device, h, w):
     row = torch.from_numpy(
         (np.arange(h // 8) // 8 % 2).astype(np.int32)).to(cuda_device)
     before = dct8_quant_zigzag.launches
-    got = dct8_quant_zigzag(plane, recip, row)
+    (got,) = dct8_quant_zigzag([(plane, recip, row)])
     torch.cuda.synchronize()
     assert dct8_quant_zigzag.launches == before + 1
     want = dct8_quant_zigzag_plain(plane, recip, row)
@@ -59,18 +62,52 @@ def test_kernel_matches_plain(cuda_device, h, w):
     assert (d == 0).double().mean().item() >= 0.999
 
 
+@pytest.mark.parametrize("h,w", [(1088, 1920), (48, 80)])
+def test_frame_launch_matches_plain_per_plane(cuda_device, h, w):
+    """Y (h, w) and Cb, Cr (h/2, w/2) in one launch, the chroma planes
+    strided views of one buffer (no copy), against the plain version plane
+    by plane: max |diff| <= 1 and >= 99.9% equal (stated tolerance; in
+    practice exact)."""
+    rng = np.random.default_rng(h * w)
+    y = torch.from_numpy(
+        rng.integers(0, 256, (h, w)).astype(np.float32)).to(cuda_device)
+    both = torch.from_numpy(
+        rng.integers(0, 256, (h // 2, w)).astype(np.float32)).to(cuda_device)
+    cb, cr = both[:, :w // 2], both[:, w // 2:]
+    assert not cb.is_contiguous()
+    recip = torch.from_numpy(_recips()).to(cuda_device)
+    row_y = torch.from_numpy(
+        (np.arange(h // 8) // 8 % 2).astype(np.int32)).to(cuda_device)
+    row_c = torch.from_numpy(
+        (np.arange(h // 16) // 4 % 2).astype(np.int32)).to(cuda_device)
+    planes = [(y, recip, row_y), (cb, recip, row_c), (cr, recip, row_c)]
+    before = dct8_quant_zigzag.launches
+    got = dct8_quant_zigzag(planes)
+    torch.cuda.synchronize()
+    assert dct8_quant_zigzag.launches == before + 1
+    for g, p in zip(got, planes):
+        want = dct8_quant_zigzag_plain(*p)
+        assert g.shape == want.shape
+        d = (g.int() - want.int()).abs()
+        assert d.max().item() <= 1
+        assert (d == 0).double().mean().item() >= 0.999
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     recip = torch.from_numpy(_recips()).to(cuda_device)
     row = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(TypeError):
-        dct8_quant_zigzag(torch.zeros(16, 16, dtype=torch.float64,
-                                      device=cuda_device), recip, row)
+        dct8_quant_zigzag([(torch.zeros(16, 16, dtype=torch.float64,
+                                        device=cuda_device), recip, row)])
+    with pytest.raises(ValueError):              # rows not 16-byte apart
+        dct8_quant_zigzag([(torch.zeros(16, 34, device=cuda_device)[:, :16],
+                            recip, row)])
+    with pytest.raises(ValueError):              # columns strided
+        dct8_quant_zigzag([(torch.zeros(16, 32, device=cuda_device)[:, ::2],
+                            recip, row)])
     with pytest.raises(ValueError):
-        dct8_quant_zigzag(torch.zeros(16, 32, device=cuda_device)[:, :16],
-                          recip, row)
-    with pytest.raises(ValueError):
-        dct8_quant_zigzag(torch.zeros(16, 16, device=cuda_device),
-                          recip.cpu(), row)
+        dct8_quant_zigzag([(torch.zeros(16, 16, device=cuda_device),
+                            recip.cpu(), row)])
 
 
 def test_encoder_on_card_equals_cpu(cuda_device):
@@ -93,26 +130,81 @@ def test_encoder_on_card_equals_cpu(cuda_device):
     assert gpu.host_fallback_stripes_total == cpu.host_fallback_stripes_total > 0
 
 
-@pytest.mark.parametrize("kind", ["scroll", "noise"])
-def test_me_mc_kernel_equals_plain_at_1080p_stripes(cuda_device, kind):
-    """17 stripes of 64x1920: true motion (a scrolled desktop) and noise
-    (ties everywhere); mv and the three predictions exactly equal."""
-    src = SyntheticSource(1920, 1088, pattern=kind, seed=5)
-    a, b = src.next_frame()[..., 1], src.next_frame()[..., 1]
-    rng = np.random.default_rng(6)
-    cur = torch.from_numpy(np.ascontiguousarray(a).reshape(17, 64, 1920))
-    ref = torch.from_numpy(np.ascontiguousarray(b).reshape(17, 64, 1920))
-    cb, cr = (torch.from_numpy(rng.integers(0, 256, (17, 32, 960),
-                                            dtype=np.uint8))
+def _me_pair(kind, h=1088, w=1920):
+    """(cur, ref) luma planes [h, w]: a scrolled desktop (true motion),
+    noise, two flat frames of different levels (all offsets tie), a 4x4
+    dot lattice moved by (1, 1) (many SAD-0 ties away from rank 0), and
+    random texture moved by (5, 3) (true motion at any width)."""
+    if kind == "shifted":
+        big = np.random.default_rng(w).integers(0, 256, (h + 8, w + 8),
+                                                dtype=np.uint8)
+        return big[5:5 + h, 3:3 + w].copy(), big[:h, :w].copy()
+    if kind in ("scroll", "noise"):
+        src = SyntheticSource(w, h, pattern=kind, seed=5)
+        a, b = src.next_frame()[..., 1], src.next_frame()[..., 1]
+        return np.ascontiguousarray(a), np.ascontiguousarray(b)
+    if kind == "flat":
+        return np.full((h, w), 90, np.uint8), np.full((h, w), 100, np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ref = np.where((yy % 4 == 0) & (xx % 4 == 0), 220, 30).astype(np.uint8)
+    return np.roll(ref, (1, 1), axis=(0, 1)), ref
+
+
+def _me_check(device, cur, ref, sh, search, seed=6):
+    """me_mc_stripes on the card against full_search_mc (the plain
+    version) on the same card tensors: every value exactly equal."""
+    h, w = cur.shape
+    S = h // sh
+    rng = np.random.default_rng(seed)
+    cb, cr = (rng.integers(0, 256, (S, sh // 2, w // 2), dtype=np.uint8)
               for _ in range(2))
-    args = [t.to(cuda_device) for t in (cur, ref, cb, cr)]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (cur.reshape(S, sh, w), ref.reshape(S, sh, w), cb, cr)]
     before = me_mc_stripes.launches
-    got = me_mc_stripes(*args)
+    got = me_mc_stripes(*args, search=search)
     torch.cuda.synchronize()
     assert me_mc_stripes.launches == before + 1
-    want = full_search_mc(*args)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
+    want = full_search_mc(*args, search=search)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        assert torch.equal(g, w_)
+    return got[0]
+
+
+@pytest.mark.parametrize("kind", ["scroll", "noise", "flat", "lattice"])
+def test_me_mc_kernel_equals_plain_at_1080p_stripes(cuda_device, kind):
+    """17 stripes of 64x1920 at the served radius: mv and the three
+    predictions exactly equal on true motion, noise and all-tie pairs."""
+    cur, ref = _me_pair(kind)
+    mv = _me_check(cuda_device, cur, ref, 64, 12)
+    if kind == "flat":
+        assert not mv.any()                      # every tie goes to (0, 0)
+    if kind == "lattice":
+        assert mv.any(-1).all()
+
+
+@pytest.mark.parametrize("w", [1376, 1280, 48])
+def test_me_mc_kernel_widths(cuda_device, w):
+    """Widths whose MB count is not a multiple of the kernel's 8-MB run
+    (1376: 86 MBs; 48: 3 MBs, one block at both stripe edges)."""
+    for kind in ("shifted", "lattice"):
+        cur, ref = _me_pair(kind, h=128, w=w)
+        _me_check(cuda_device, cur, ref, 64, 12)
+
+
+@pytest.mark.parametrize("sh", [16, 32, 64])
+def test_me_mc_kernel_stripe_heights(cuda_device, sh):
+    cur, ref = _me_pair("scroll", h=192, w=640)
+    _me_check(cuda_device, cur, ref, sh, 12)
+
+
+@pytest.mark.parametrize("search", [0, 1, 7, 12, 15])
+def test_me_mc_kernel_radii(cuda_device, search):
+    """Every radius the kernel's launch shapes differ by (its dx groups of
+    4, its dy chunks of 5): 0, 1, 7, 12, 15, on scroll and lattice."""
+    for kind in ("scroll", "lattice"):
+        cur, ref = _me_pair(kind, h=128, w=1376)
+        _me_check(cuda_device, cur, ref, 32, search)
 
 
 def test_me_mc_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -144,3 +236,28 @@ def test_h264_encoder_on_card_equals_cpu(cuda_device):
         assert [(s.y_start, s.is_key, s.annexb) for s in a] == \
             [(s.y_start, s.is_key, s.annexb) for s in b]
     assert gpu.entropy_errors_total == 0
+
+
+def test_encoder_churn_keeps_reserved_memory_flat(cuda_device):
+    """Encoders built, used and dropped in turn (displays joining and
+    leaving) share the card's one stream, so the allocator reuses a
+    dropped encoder's blocks. At 1280x720 each encoder holds allocations
+    over 1 MB, which the allocator serves from 20 MB segments: with a
+    stream per encoder the reserved memory grew by at least 20 MB a cycle
+    (120 MB from the 2nd cycle to the 8th); the bound is 64 MB."""
+    assert encoder_stream(cuda_device) is encoder_stream(cuda_device)
+    src = SyntheticSource(1280, 720, pattern="scroll", seed=8)
+    frames = [src.next_frame() for _ in range(3)]
+    for make in (lambda: JpegStripeEncoder(1280, 720, device=cuda_device),
+                 lambda: H264StripeEncoder(1280, 720, device=cuda_device)):
+        readings = []
+        for _ in range(8):
+            enc = make()
+            assert enc.stream is encoder_stream(cuda_device)
+            for f in frames:
+                enc.encode_frame(f)
+            del enc
+            gc.collect()
+            torch.cuda.synchronize()
+            readings.append(torch.cuda.memory_reserved())
+        assert readings[-1] - readings[1] <= 64 << 20, readings

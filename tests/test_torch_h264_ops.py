@@ -17,10 +17,12 @@ import jax.numpy as jnp  # noqa: E402
 from selkies_tpu.encoder import h264_device as jdev  # noqa: E402
 from selkies_tpu.ops import h264_transform as jht  # noqa: E402
 from selkies_tpu.ops import motion as jmotion  # noqa: E402
+from selkies_tpu.ops.pallas_me import _rank_table as jrank  # noqa: E402
 from selkies_tpu.ops.pallas_me import me_mc_stripes as jme  # noqa: E402
 from selkies_tpu_torch.encoder import h264_device as tdev  # noqa: E402
 from selkies_tpu_torch.ops import h264_transform as ht  # noqa: E402
 from selkies_tpu_torch.ops import motion as tmotion  # noqa: E402
+from selkies_tpu_torch.ops.me_mc import _rank_table as trank  # noqa: E402
 from selkies_tpu_torch.ops.me_mc import me_mc_stripes  # noqa: E402
 
 QPS = (0, 17, 26, 36, 51)
@@ -182,6 +184,16 @@ def test_pad_replicate_and_offsets_match():
                           np.asarray(jmotion.pad_replicate(jnp.asarray(x), 12)))
     for s in (0, 1, 12):
         assert np.array_equal(tmotion._offsets(s), jmotion._offsets(s))
+
+
+@pytest.mark.parametrize("search", range(16))
+def test_rank_table_is_the_pallas_kernels(search):
+    """The rank table the kernel's wrapper uploads (the low bits of its
+    (sad << 10) | rank key) equals the Pallas kernel's for every radius
+    the kernel takes."""
+    got, want = trank(search), jrank(search)
+    assert got.dtype == want.dtype == np.int32
+    assert np.array_equal(got, want)
 
 
 def test_me_mc_wrapper_rejects_bad_shapes():

@@ -14,7 +14,8 @@ jnp = pytest.importorskip("jax.numpy")
 from selkies_tpu.encoder.jpeg import _encode_body
 from selkies_tpu.ops import color as jcolor
 from selkies_tpu.ops.quant import quality_scaled_tables as jtables
-from selkies_tpu_torch.encoder.jpeg import _recip, encode_body
+from selkies_tpu_torch._device import encoder_stream
+from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder, _recip, encode_body
 from selkies_tpu_torch.ops import color as tcolor
 from selkies_tpu_torch.ops import dct as tdct
 from selkies_tpu_torch.ops.dct_quant import (dct8_quant_zigzag,
@@ -115,7 +116,7 @@ def test_wrapper_uses_plain_on_cpu_without_counting():
     recip = torch.from_numpy(_recip(_tables(40, 90)[0]))
     row = torch.tensor([0, 1], dtype=torch.int32)
     before = dct8_quant_zigzag.launches
-    out = dct8_quant_zigzag(plane, recip, row)
+    (out,) = dct8_quant_zigzag([(plane, recip, row)])
     assert dct8_quant_zigzag.launches == before
     assert torch.equal(out, dct8_quant_zigzag_plain(plane, recip, row))
     assert out.shape == (2, 5, 64) and out.dtype == torch.int16
@@ -123,25 +124,69 @@ def test_wrapper_uses_plain_on_cpu_without_counting():
 
 def test_wrapper_rejects_other_devices_and_bad_shapes():
     """No fallback: a tensor that is neither on the CPU nor on the card is
-    refused, as are shapes the kernel does not take."""
+    refused, as are shapes the kernel does not take and more planes than
+    one launch takes."""
     recip = torch.ones(2, 8, 8)
+    row2 = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError):
-        dct8_quant_zigzag(torch.empty(16, 16, device="meta"), recip,
-                          torch.zeros(2, dtype=torch.int32))
+        dct8_quant_zigzag([(torch.empty(16, 16, device="meta"), recip, row2)])
     with pytest.raises(ValueError):
-        dct8_quant_zigzag(torch.zeros(12, 16), recip,
-                          torch.zeros(1, dtype=torch.int32))
+        dct8_quant_zigzag([(torch.zeros(12, 16), recip,
+                            torch.zeros(1, dtype=torch.int32))])
     with pytest.raises(ValueError):
-        dct8_quant_zigzag(torch.zeros(16, 16), recip,
-                          torch.zeros(3, dtype=torch.int32))
+        dct8_quant_zigzag([(torch.zeros(16, 16), recip,
+                            torch.zeros(3, dtype=torch.int32))])
+    with pytest.raises(ValueError):
+        dct8_quant_zigzag([])
+    with pytest.raises(ValueError):
+        dct8_quant_zigzag([(torch.zeros(16, 16), recip, row2)] * 4)
+    with pytest.raises(ValueError):
+        dct8_quant_zigzag([(torch.zeros(16, 16), recip, row2),
+                           (torch.empty(16, 16, device="meta"), recip, row2)])
 
 
 def test_flat_plane_is_dc_only():
     plane = torch.full((16, 24), 200.0)
     recip = torch.from_numpy(_recip(_tables(50, 90)[0]))
-    out = dct8_quant_zigzag(plane, recip, torch.zeros(2, dtype=torch.int32))
+    (out,) = dct8_quant_zigzag([(plane, recip,
+                                 torch.zeros(2, dtype=torch.int32))])
     assert torch.all(out[:, :, 1:] == 0)
     assert torch.all(out[:, :, 0] == out[0, 0, 0])
+
+
+def test_frame_wrapper_equals_pallas_interpret_plane_by_plane():
+    """One call with a frame's Y, Cb and Cr planes (the chroma planes
+    strided views, as the kernel takes them without a copy) against the
+    JAX package's Pallas kernel in interpret mode, as
+    tests/test_pallas_dct.py runs it, plane by plane, with that test's
+    tolerance (the Pallas kernel's contractions are summed in another
+    order); and exactly against the plain version per plane."""
+    from selkies_tpu.ops.pallas_dct import dct8_quant_zigzag as pallas
+
+    rng = np.random.default_rng(9)
+    qy, qc = _tables(40, 90)
+    ry, rc = _recip(qy), _recip(qc)
+    y = rng.integers(0, 256, (32, 256)).astype(np.float32)
+    cbcr = rng.integers(0, 256, (16, 2 * 128)).astype(np.float32)
+    row_y = (np.arange(4) % 2).astype(np.int32)
+    row_c = np.array([1, 0], np.int32)
+    cb_t = torch.from_numpy(cbcr)[:, :128]             # rows 256 floats apart
+    cr_t = torch.from_numpy(cbcr)[:, 128:]
+    planes = [(torch.from_numpy(y), torch.from_numpy(ry),
+               torch.from_numpy(row_y)),
+              (cb_t, torch.from_numpy(rc), torch.from_numpy(row_c)),
+              (cr_t, torch.from_numpy(rc), torch.from_numpy(row_c))]
+    before = dct8_quant_zigzag.launches
+    got = dct8_quant_zigzag(planes)
+    assert dct8_quant_zigzag.launches == before
+    for (p, r, i), g, recip, row in zip(planes, got, (ry, rc, rc),
+                                        (row_y, row_c, row_c)):
+        want = np.asarray(pallas(p.numpy(), recip[row], interpret=True))
+        g = g.numpy()
+        assert g.shape == want.shape and g.dtype == np.int16
+        assert np.max(np.abs(g - want)) <= 1.0
+        assert (g == want).mean() > 0.999
+        assert np.array_equal(g, dct8_quant_zigzag_plain(p, r, i).numpy())
 
 
 def test_tf32_canary():
@@ -174,3 +219,20 @@ def test_blockify_layout():
     b = tdct.blockify(x)
     assert b.shape == (2, 3, 8, 8)
     assert torch.equal(b[1, 2], x[8:16, 16:24])
+
+
+def test_encoders_on_the_cpu_have_no_stream_and_stay_independent():
+    """The card's encoders share one stream (encoder_stream); on the CPU
+    there is none, and two encoders alive at once still encode the same
+    bytes as each other."""
+    assert encoder_stream("cpu") is None
+    assert encoder_stream(torch.device("cpu")) is None
+    a = JpegStripeEncoder(64, 48, stripe_height=16, device="cpu")
+    b = JpegStripeEncoder(64, 48, stripe_height=16, device="cpu")
+    assert a.stream is None and b.stream is None
+    for seed in (11, 12, 13):
+        f = _frame(seed, h=48, w=64)
+        sa, sb = a.encode_frame(f), b.encode_frame(f)
+        assert [(s.y_start, s.jpeg) for s in sa] == \
+            [(s.y_start, s.jpeg) for s in sb]
+        assert sa
