@@ -6,29 +6,36 @@
         # device time of each launch that DIR's checkout of the port makes
         # for one 1080p frame's DCT (an older tree's per-plane launches)
 
-It builds the port's CUDA kernels (and the H.264 profile's g++ host coder)
-from the checkout's sources, holds each kernel against its plain PyTorch
-version at the 1080p main-path shapes, and drives both served profiles at
+It builds the port's CUDA kernels (and the g++ host coders: H.264 CAVLC and
+the JPEG scan) from the checkout's sources, holds each kernel against its
+plain PyTorch version at the 1080p main-path shapes (the motion kernel at
+the striped and the full-frame shape), and drives every served profile at
 1920x1080: the JPEG-stripe profile (pipelined encoder behind the async
-driver, then the data server's ws_handler with an in-process client) and
-the x264enc-striped H.264 profile (the same two ways). Launch counters,
-set to 0 before each profile's path and read after it, show that the path
-ran its kernel. Each timed encoder run is made twice: once keeping
-nothing (its rates are the ones reported) and once keeping what the check
-after its window needs (its rates are reported beside them). The output
-is checked by the repo's own means:
+driver, then the data server's ws_handler with an in-process client), the
+x264enc-striped and the full-frame x264enc H.264 profiles (the same two
+ways), and the host-entropy rung of both codecs (behind the threaded
+adapter). Launch counters, set to 0 before each path and read after it,
+show that the path ran its kernel. Each timed device-rung encoder run is
+made twice: once keeping nothing (its rates are the ones reported) and
+once keeping what the check after its window needs (its rates are
+reported beside them). The output is checked by the repo's own means:
 
 * JPEG: every stripe scan of each checked run equals the host coder
   (entropy_py) on that frame's coefficients fetched from the card; a 1080p
   run with overflowed (host-coded) noise stripes is checked the same way;
   a small sequence encoded on the card equals it encoded on the CPU;
-* H.264: on every CHECK_EVERY-th P frame of each checked run, every emitted
-  stripe's device-CAVLC Annex-B equals the native coder
+* H.264 (both profiles): on every CHECK_EVERY-th P frame of each checked
+  run, every emitted stripe's device-CAVLC Annex-B equals the native coder
   (encode_picture_nals_np) on that stripe's exact levels, kept on the
   card; the entropy error count stays 0; and a 1920x256 sequence (IDR,
   scrolled P frames, paint-over, a keyframe request) encoded on the card
   equals it encoded on the CPU, whose bytes the CPU tests hold equal to
-  the JAX package's.
+  the JAX package's, striped and full-frame, with each entropy tier; a
+  1080p noise P frame at QP 18 through x264enc, whose payload passes the
+  fetch prefix (device tier) and whose nonzero cells pass the cap and wrap
+  the u16 head count (host tier), equals the native coder on its levels;
+* the host rungs: every frame's stripes equal the device rung's,
+  encoded synchronously on the card from the same frames.
 
 Encoders share one CUDA stream per card, so the memory of a closed
 encoder goes back to the allocator's pool: the encoder_churn phase builds,
@@ -36,7 +43,8 @@ uses and closes eight encoders of each profile in turn and checks that
 the reserved memory stops growing.
 
 It prints one JSON object per line (setup, kernels, encoder, h264_encoder,
-server, server_h264, encoder_churn, h264_cross, profile, profile_h264),
+h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
+encoder_churn, h264_cross, profile, profile_h264, profile_fullframe),
 the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits
@@ -71,9 +79,10 @@ INT32_LANES = 132 * 64
 
 W, H = 1920, 1080
 STRIPE = 64
-#: frames in each timed encoder run (JPEG, H.264)
+#: frames in each timed encoder run (JPEG, H.264, each host rung)
 N_FRAMES = 120
 N_H264 = 90
+N_HOST = 40
 #: every CHECK_EVERY-th H.264 P frame of a timed run is checked stripe by
 #: stripe against the native coder on its exact levels
 CHECK_EVERY = 5
@@ -166,13 +175,13 @@ def _settle(before: str) -> None:
 
 
 def phase_setup():
-    """Build every kernel of the checkout (one nvcc per source, all at
-    once) and the H.264 host coder (g++); print the card's name and power
-    limit. Returns the card's maximum SM clock in Hz (for integer peaks)."""
+    """Build every kernel of the checkout (one nvcc per source) and the two
+    host coders (g++), all at once; print the card's name and power limit.
+    Returns the card's maximum SM clock in Hz (for integer peaks)."""
     import torch
 
     from selkies_tpu_torch import _build
-    from selkies_tpu_torch.native import cavlc_lib
+    from selkies_tpu_torch.native import cavlc_lib, entropy_lib
 
     def smi(query):
         out = subprocess.run(
@@ -186,16 +195,18 @@ def phase_setup():
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     stems = sorted(p[:-3] for p in os.listdir(_build.CSRC) if p.endswith(".cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(stems) + 1) as pool:  # one nvcc per source
-        host = pool.submit(cavlc_lib)
+    with ThreadPoolExecutor(len(stems) + 2) as pool:  # one nvcc per source
+        host = [pool.submit(cavlc_lib), pool.submit(entropy_lib)]
         list(pool.map(_build.load_library, stems))
-        host.result()
+        for h in host:
+            h.result()
     build_s = time.perf_counter() - t0
     SASS.update({stem: _build.sass_opcodes(_build.libraries[stem])
                  for stem in stems})
     emit({"phase": "setup", "gpu": card, "max_sm_clock_mhz": clock_mhz,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kernels_built": stems, "host_coder_built": "native/cavlc.cpp",
+          "kernels_built": stems,
+          "host_coders_built": ["native/cavlc.cpp", "native/entropy.cpp"],
           "build_s": round(build_s, 3),
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if "registers" in ln or "spill" in ln]
@@ -453,8 +464,26 @@ def _timed_run(make_pipeline, frames, n_warm: int, record=None):
 
 
 def _rates(n: int, wall: float, st: dict) -> dict:
-    return {"fps": n / wall, "dispatch_p50_ms": st["dispatch_p50_ms"],
-            "fetch_wait_p50_ms": st["fetch_wait_p50_ms"]}
+    """fps and the pipeline's dispatch and fetch-wait medians; a host rung
+    (threaded adapter) has no separate dispatch and reports the median of
+    its whole synchronous encode instead."""
+    out = {"fps": n / wall}
+    for key in ("dispatch_p50_ms", "fetch_wait_p50_ms", "encode_p50_ms"):
+        if key in st:
+            out[key] = st[key]
+    return out
+
+
+def _wire_bytes(results, fullframe: bool = False) -> int:
+    """Bytes the data server puts on the wire for these results: each
+    stripe packed as it packs it (0x03, 0x04, or 0x00 for x264enc)."""
+    from types import SimpleNamespace
+
+    from selkies_tpu_torch.server.data_server import _pack_stripe
+
+    enc = SimpleNamespace(wire_fullframe=fullframe)
+    return sum(len(_pack_stripe(1, s, enc))
+               for _, stripes in results for s in stripes)
 
 
 def phase_encoder():
@@ -497,6 +526,7 @@ def phase_encoder():
             "frames": N_FRAMES,
             **_rates(N_FRAMES, wall, st),
             "stripes_per_frame": sum(len(s) for _, s in results) / N_FRAMES,
+            "wire_bytes_per_frame": _wire_bytes(results) / N_FRAMES,
             "d2h_bytes_per_frame": st["d2h_bytes_per_frame"],
             "host_entropy_ms_per_frame": st["host_entropy_ms_per_frame"],
             "host_fallback_stripes": st["host_fallback_stripes"],
@@ -610,11 +640,18 @@ def phase_small_reference():
     return {"small_frames": len(frames), "small_stripes_identical": same}
 
 
+#: the server phase's name and wire type by profile
+SERVER_PHASES = {"jpeg": ("server", 0x03),
+                 "x264enc-striped": ("server_h264", 0x04),
+                 "x264enc": ("server_fullframe", 0x00)}
+
+
 def phase_server(profile: str = "jpeg", min_frames: int = 30,
                  timeout_s: float = 180.0):
     """An in-process client through the port's ws_handler at 1920x1080:
-    SETTINGS handshake, >= min_frames frames of stripes (0x03 JPEG, or
-    0x04 H.264 for x264enc-striped), each ACKed."""
+    SETTINGS handshake, >= min_frames frames (0x03 JPEG stripes, 0x04 H.264
+    stripes for x264enc-striped, one 0x00 full-frame packet per frame for
+    x264enc), each ACKed."""
     from selkies_tpu_torch.protocol.wire import unpack_binary
     from selkies_tpu_torch.server.data_server import DataStreamingServer
     from selkies_tpu_torch.settings import Settings
@@ -646,7 +683,7 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
                 raise StopAsyncIteration
             return m
 
-    h264 = profile == "x264enc-striped"
+    name, wire_type = SERVER_PHASES[profile]
 
     async def run():
         settings = Settings(argv=[], env={"SELKIES_PORT": "0",
@@ -665,10 +702,10 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
             for m in ws.sent[seen:]:
                 if isinstance(m, (bytes, bytearray)):
                     f = unpack_binary(bytes(m))
-                    if h264:
-                        check(m[0] == 0x04
+                    if wire_type != 0x03:
+                        check(m[0] == wire_type
                               and f.payload[:4] == b"\x00\x00\x00\x01",
-                              "bad 0x04 stripe")
+                              f"bad H.264 message for {profile}: type {m[0]}")
                     else:
                         check(m[0] == 0x03 and f.payload[:2] == b"\xff\xd8"
                               and f.payload[-2:] == b"\xff\xd9",
@@ -684,7 +721,7 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
         await asyncio.sleep(0.2)
         st = server.display_clients["primary"]
         result = {
-            "phase": "server_h264" if h264 else "server", "profile": profile,
+            "phase": name, "profile": profile, "wire_type": wire_type,
             "width": W, "height": H,
             "mode": ws.sent[0] if ws.sent else None,
             "frames_received": len(acked), "stripes_received": stripes,
@@ -751,21 +788,18 @@ def _tie_pairs():
     return {"flat": (flat_cur, flat_ref), "lattice": (lat_cur, lat_ref)}
 
 
-def phase_me_kernel_check(int_ops_per_s: float):
+def _me_at_shape(enc, int_ops_per_s: float) -> dict:
     """me_mc_stripes against its plain version (full_search_mc) at the
-    1080p stripe shapes, on a scroll pair (true motion), a noise pair and
-    two pairs whose searches tie (_tie_pairs): mv and the three
-    predictions must be exactly equal. Then kernel and plain times and the
-    bound of the work."""
+    shapes ``enc``'s P step hands it, on a scroll pair (true motion), a
+    noise pair and two pairs whose searches tie (_tie_pairs): mv and the
+    three predictions must be exactly equal. Then kernel and plain times
+    and the bound of the work."""
     import torch
 
-    from selkies_tpu_torch import _build
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
-    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
     from selkies_tpu_torch.ops.motion import full_search_mc
 
-    enc = H264StripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE)
     scroll = SyntheticSource(W, H, pattern="scroll", seed=0)
     a = scroll.next_frame()
     pairs = {"scroll": (scroll.next_frame(), a),
@@ -786,11 +820,13 @@ def phase_me_kernel_check(int_ops_per_s: float):
         n_diff += d
         n_vals += sum(g.numel() for g in got)
         moved[name] = int((got[0] != 0).any(-1).sum().item())
-    check(n_diff == 0, f"me_mc kernel vs plain: {n_diff} of {n_vals} differ "
-          f"({per_pair})")
-    check(moved["scroll"] > 0, "scroll pair found no motion")
-    check(moved["flat"] == 0, "flat pair: a tie went past rank 0")
-    check(moved["lattice"] > 0, "lattice pair found no motion")
+    S, h, w = _h264_planes(*pairs["scroll"], enc)[0].shape
+    shape = f"[{S},{h},{w}]"
+    check(n_diff == 0, f"me_mc kernel vs plain at {shape}: {n_diff} of "
+          f"{n_vals} differ ({per_pair})")
+    check(moved["scroll"] > 0, f"{shape}: scroll pair found no motion")
+    check(moved["flat"] == 0, f"{shape}: flat pair: a tie went past rank 0")
+    check(moved["lattice"] > 0, f"{shape}: lattice pair found no motion")
 
     args = _h264_planes(*pairs["scroll"], enc)
     kernel_ms = device_ms(lambda: me_mc_stripes(*args), 50)
@@ -798,7 +834,6 @@ def phase_me_kernel_check(int_ops_per_s: float):
     check(None not in (kernel_ms, plain_ms), "profiler recorded no device time")
     events_ms = cuda_time_ms(lambda: me_mc_stripes(*args), 20)
 
-    S, h, w = args[0].shape
     n_off = (2 * enc.search + 1) ** 2
     # the fewest instructions the search needs per 4 pixel-offsets: one
     # VABSDIFF4 when ptxas gives it the accumulate (the kernel's SASS holds
@@ -810,12 +845,9 @@ def phase_me_kernel_check(int_ops_per_s: float):
     out_bytes = S * h * w + 2 * (S * h * w // 4) + 4 * 2 * (S * h * w // 256)
     bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
     ops_ms = ops / int_ops_per_s * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     return {
-        "name": "me_mc_stripes",
-        "route": "cuda",
-        "source": "selkies_tpu_torch/csrc/me_mc.cu",
-        "replaces": "selkies_tpu/ops/pallas_me.py:234",
-        "launches": None,                   # filled from the main-path run
+        "shape": shape,
         "max_abs_err": 0 if n_diff == 0 else None,
         "n_diff": n_diff,
         "n_values": n_vals,
@@ -825,19 +857,46 @@ def phase_me_kernel_check(int_ops_per_s: float):
         "ms_timing": "torch.profiler device time, 50 reps, 1080p scroll pair",
         "events_ms": events_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "share_of_bound": bound_ms / kernel_ms,
         "bound_basis": (f"{ops:.4g} byte-SIMD instructions ({per4} per 4 "
                         f"pixel-offsets, from the kernel's SASS) / ({INT32_LANES} "
                         f"lanes x {int_ops_per_s / INT32_LANES / 1e6:.0f} "
                         f"MHz max SM clock); {in_bytes + out_bytes} bytes / "
                         "3.35 TB/s"),
+        "unit": f"one 1080p P frame: {S} stripe(s) of {h}x{w}, 1 launch",
+    }
+
+
+def phase_me_kernel_check(int_ops_per_s: float):
+    """me_mc_stripes against its plain version at both shapes the H.264
+    profiles give it: 17 stripes of 64x1920 (x264enc-striped), and one
+    full-frame stripe of 1088x1920 (x264enc, whose rows 1080-1087 are
+    replicate padding inside the stripe). The kernel's entry carries the
+    striped numbers; ``full_frame`` those of the full-frame shape."""
+    from selkies_tpu_torch import _build
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+
+    striped = _me_at_shape(
+        H264StripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE),
+        int_ops_per_s)
+    full = _me_at_shape(H264StripeEncoder(W, H, fullframe=True, device=DEVICE),
+                        int_ops_per_s)
+    entry = {
+        "name": "me_mc_stripes",
+        "route": "cuda",
+        "source": "selkies_tpu_torch/csrc/me_mc.cu",
+        "replaces": "selkies_tpu/ops/pallas_me.py:234",
+        "launches": None,                   # filled from the main-path run
+        **striped,
         "library_ms": None,
-        "unit": f"one 1080p P frame: {S} stripes of {h}x{w}, 1 launch",
         "ptxas": [ln.strip() for ln in _build.ptxas_report.get("me_mc", "")
                   .splitlines() if "registers" in ln or "spill" in ln],
         "sass_per_vabsdiff4": _per_vabsdiff4(),
+        "full_frame": full,
     }
+    return entry
 
 
 def _me_sass() -> dict:
@@ -870,15 +929,29 @@ def _per_vabsdiff4() -> dict:
     return {k: round(v / n, 4) for k, v in list(ops.items())[:10]}
 
 
-def _h264_pipeline():
-    """The served x264enc-striped encoder, as the data server builds it."""
+def _served(profile: str, entropy=None):
+    """The served encoder of ``profile`` at 1080p, as the data server
+    builds it (``entropy="host"``: the host rung): (base encoder, pipeline
+    or None behind a threaded adapter, what the capture loop drives)."""
     from selkies_tpu_torch.server.data_server import default_encoder_factory
     from selkies_tpu_torch.settings import Settings
 
     settings = Settings(argv=[], env={"SELKIES_PORT": "0",
-                                      "SELKIES_ENCODER": "x264enc-striped"})
-    drv = default_encoder_factory(W, H, settings, device=DEVICE)
-    return drv.pipe.base, drv.pipe, drv
+                                      "SELKIES_ENCODER": profile})
+    ov = {"tpu_entropy": entropy} if entropy else None
+    enc = default_encoder_factory(W, H, settings, ov, device=DEVICE)
+    pipe = getattr(enc, "pipe", None)
+    return (enc.base if pipe is None else pipe.base), pipe, enc
+
+
+def _h264_pipeline():
+    """The served x264enc-striped encoder."""
+    return _served("x264enc-striped")
+
+
+def _fullframe_pipeline():
+    """The served full-frame x264enc encoder."""
+    return _served("x264enc")
 
 
 def _h264_recording(base, n_keep: int):
@@ -940,47 +1013,53 @@ def _check_h264(base, kept) -> dict:
     return tally
 
 
-def phase_h264_encoder():
-    """1920x1080 x264enc-striped through PipelinedH264Encoder +
-    AsyncEncodeDriver over the desktop and scroll patterns, N_H264 timed
-    frames each, twice: a run that keeps nothing gives the rates; in a
-    checked run every CHECK_EVERY-th P frame's levels are kept and its
-    stripes checked after the window."""
+def phase_h264_encoder(profile: str = "x264enc-striped"):
+    """1920x1080 x264enc-striped (or, for ``profile="x264enc"``, one
+    full-frame stripe) through PipelinedH264Encoder + AsyncEncodeDriver
+    over the desktop and scroll patterns, N_H264 timed frames each, twice:
+    a run that keeps nothing gives the rates; in a checked run every
+    CHECK_EVERY-th P frame's levels are kept and its stripes checked after
+    the window."""
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
 
-    out = {"phase": "h264_encoder", "profile": "x264enc-striped",
-           "width": W, "height": H, "patterns": {}}
+    fullframe = profile == "x264enc"
+    make = _fullframe_pipeline if fullframe else _h264_pipeline
+    out = {"phase": "h264_fullframe_encoder" if fullframe else "h264_encoder",
+           "profile": profile, "width": W, "height": H, "patterns": {}}
     p_frames = 0
     for pattern in ("desktop", "scroll"):
         src = SyntheticSource(W, H, pattern=pattern, seed=2)
         frames = [src.next_frame() for _ in range(N_H264 + 2)]
         launches0 = me_mc_stripes.launches
         # warm-up: the IDR, then the first P step
-        _, _, (_, counts), results, wall, st = _timed_run(
-            _h264_pipeline, frames, 2, record=lambda b: _h264_recording(b, 0))
+        base, _, (_, counts), results, wall, st = _timed_run(
+            make, frames, 2, record=lambda b: _h264_recording(b, 0))
+        check(base.n_stripes == (1 if fullframe else -(-H // STRIPE)),
+              f"{profile}: {base.n_stripes} stripes")
         launches = me_mc_stripes.launches - launches0
         p_frames += counts["p"]
         check(len(results) == N_H264 and st["encode_errors"] == 0
               and st["entropy_errors"] == 0,
-              f"h264 {pattern}: {len(results)} of {N_H264} frames, {st}")
+              f"{profile} {pattern}: {len(results)} of {N_H264} frames, {st}")
         base, _, (kept, counts), results_c, wall_c, st_c = _timed_run(
-            _h264_pipeline, frames, 2,
+            make, frames, 2,
             record=lambda b: _h264_recording(b, N_H264 // CHECK_EVERY + 1))
         p_frames += counts["p"]
         check(len(results_c) == N_H264 and st_c["encode_errors"] == 0
               and st_c["entropy_errors"] == 0,
-              f"h264 {pattern} checked: {len(results_c)} of {N_H264} "
+              f"{profile} {pattern} checked: {len(results_c)} of {N_H264} "
               f"frames, {st_c}")
         tally = _check_h264(base, kept)
         check(tally["mismatch"] == 0 and tally["stripes"] > 0,
-              f"h264 {pattern}: stripes vs native coder {tally}")
+              f"{profile} {pattern}: stripes vs native coder {tally}")
         out["patterns"][pattern] = {
             "frames": N_H264,
             **_rates(N_H264, wall, st),
             "stripes_per_frame": sum(len(s) for _, s in results) / N_H264,
             "bytes_per_frame": sum(len(x.annexb) for _, s in results
                                    for x in s) / N_H264,
+            "wire_bytes_per_frame": _wire_bytes(results, fullframe) / N_H264,
             "d2h_bytes_per_frame": st["d2h_bytes_per_frame"],
             "host_entropy_ms_per_frame": st["host_entropy_ms_per_frame"],
             "host_coded_stripes": st["host_coded_stripes"],
@@ -996,6 +1075,133 @@ def phase_h264_encoder():
     return out
 
 
+def check_fullframe_large_payload() -> dict:
+    """x264enc at QP 18 on a 1080p noise P frame (after a desktop IDR),
+    with each entropy tier. Device tier: the payload passes the large
+    fetch prefix, so harvest re-reads the buffer (and the exact levels
+    where the stripe passed its byte budget). Host tier: the stripe's
+    nonzero cells pass the cap (and wrap the head's u16 count), so harvest
+    re-reads its exact levels. Either way the Annex-B must equal the
+    native coder on the exact levels, fetched from the card."""
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.encoder import h264_device as dev
+    from selkies_tpu_torch.encoder.h264 import (H264StripeEncoder,
+                                                encode_picture_nals_np)
+
+    desk = SyntheticSource(W, H, pattern="desktop", seed=12).next_frame()
+    noise = SyntheticSource(W, H, pattern="noise", seed=13).next_frame()
+    out = {}
+    for entropy in ("device", "host"):
+        enc = H264StripeEncoder(W, H, fullframe=True, qp=18, entropy=entropy,
+                                device=DEVICE)
+        enc.encode_frame(desk)
+        frame_num = enc.stripes[0].frame_num
+        p = enc.dispatch(noise)
+        row = enc._to_host(p.flat16)[0].astype(np.int32)
+        head = enc._to_host(p.head[:4])
+        (got,) = enc.harvest(p)
+        parts, pos = [], 0
+        for shape, size in enc._shapes:
+            parts.append(row[pos:pos + size].reshape(shape))
+            pos += size
+        want = encode_picture_nals_np(
+            *parts, is_idr=False, mb_w=enc.pad_w // 16,
+            mb_h=enc.stripe_h // 16, qp=18, frame_num=frame_num)
+        check(got.annexb == want and not got.is_key,
+              f"x264enc/{entropy} noise P frame differs from the native coder")
+        res = {"annexb_bytes": len(got.annexb),
+               "prefix_large": enc._prefix_large,
+               "d2h_refetch_bytes": enc.d2h_refetch_bytes_total,
+               "host_coded_stripes": enc.host_coded_stripes_total}
+        if entropy == "device":
+            check(len(got.annexb) > enc._prefix_large
+                  and enc.d2h_refetch_bytes_total > 0,
+                  f"x264enc/device noise frame did not pass the prefix: {res}")
+        else:
+            pad = np.zeros(enc._pad_words, np.int32)
+            pad[:row.size] = row
+            cells = int(pad.reshape(-1, dev.CELL).any(-1).sum())
+            count = int(head[0]) | (int(head[1]) << 8)
+            res.update(nonzero_cells=cells, cap_cells=enc._cap_cells,
+                       head_count=count, head_overflow=int(head[3]))
+            check(cells > enc._cap_cells and head[3] == 1
+                  and count == cells % 65536
+                  and enc.host_coded_stripes_total == 1,
+                  f"x264enc/host noise frame: {res}")
+        out[entropy] = res
+    return out
+
+
+def phase_host_rung(profile: str):
+    """The host-entropy rung of ``profile`` ("x264enc-striped" or "jpeg")
+    at 1920x1080, behind ThreadedEncoderAdapter as the data server builds
+    it, over the desktop and scroll patterns: N_HOST timed frames each,
+    after the warm-up frames (H.264: the IDR and the first P frame). Returns
+    the phase's numbers and, per pattern, the frames and the adapter's
+    results, which :func:`check_host_rung` holds against the device rung
+    once the caller has read the launch counts."""
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+
+    h264 = profile != "jpeg"
+    n_warm = 2 if h264 else 1
+    out = {"phase": "host_rung", "profile": profile, "entropy": "host",
+           "width": W, "height": H, "patterns": {}, "frames_dispatched": 0,
+           "p_frames_dispatched": 0}
+    runs = {}
+    for pattern in ("desktop", "scroll"):
+        src = SyntheticSource(W, H, pattern=pattern, seed=2)
+        frames = [src.next_frame() for _ in range(N_HOST + n_warm)]
+        record = (lambda b: _h264_recording(b, 0)) if h264 else None
+        base, pipe, kept, results, wall, st = _timed_run(
+            lambda: _served(profile, "host"), frames, n_warm, record=record)
+        check(pipe is None and base.entropy == "host",
+              f"{profile}: the factory's host rung is not the threaded one")
+        check(len(results) == N_HOST and st["encode_errors"] == 0
+              and st["entropy_errors"] == 0,
+              f"{profile} host {pattern}: {len(results)} of {N_HOST} "
+              f"frames, {st}")
+        out["frames_dispatched"] += len(frames)
+        if h264:
+            out["p_frames_dispatched"] += kept[1]["p"]
+        out["patterns"][pattern] = {
+            "frames": N_HOST,
+            **_rates(N_HOST, wall, st),
+            "stripes_per_frame": sum(len(x) for _, x in results) / N_HOST,
+            "wire_bytes_per_frame": _wire_bytes(results) / N_HOST,
+            "d2h_bytes_per_frame": st["d2h_bytes_per_frame"],
+            "host_entropy_ms_per_frame": st["host_entropy_ms_per_frame"],
+            "host_coded_stripes": st["host_coded_stripes"],
+            "entropy_errors": st["entropy_errors"],
+        }
+        runs[pattern] = (frames, results)
+    return out, runs
+
+
+def check_host_rung(profile: str, out: dict, runs: dict) -> None:
+    """Every timed frame of the host rung against the device rung of the
+    same profile (the factory's encoder, driven synchronously on the card
+    so its paint-over timing is the adapter's): the same stripes, byte for
+    byte."""
+    h264 = profile != "jpeg"
+
+    def key(x):
+        return (x.y_start, x.is_key, x.annexb) if h264 else \
+            (x.y_start, x.is_paintover, x.jpeg)
+
+    for pattern, (frames, results) in runs.items():
+        base, _, drv = _served(profile)
+        check(base.entropy == "device", f"{profile}: no device rung")
+        drv.close()
+        drv.join(30.0)
+        device = [[key(x) for x in base.encode_frame(f)] for f in frames]
+        same = sum(device[seq] == [key(x) for x in stripes]
+                   for seq, stripes in results)
+        check(same == len(results),
+              f"{profile} {pattern}: host rung equals the device rung on "
+              f"{same} of {len(results)} frames")
+        out["patterns"][pattern]["frames_identical_to_device_rung"] = same
+
+
 #: encoder_churn: cycles per profile, frames per cycle, and the most the
 #: reserved memory may grow from the 2nd cycle's reading to the last's
 CHURN_CYCLES = 8
@@ -1004,8 +1210,9 @@ CHURN_GROWTH_MB = 256
 
 
 def phase_encoder_churn():
-    """Displays joining and leaving: for each profile, CHURN_CYCLES times,
-    build the served encoder (as the data server does), encode
+    """Displays joining and leaving: for each profile (and the H.264 host
+    rung), CHURN_CYCLES times, build the served encoder (as the data server
+    does), encode
     CHURN_FRAMES 1080p frames, close it and drop it; read the CUDA
     allocator's reserved memory after each cycle. With every encoder on
     the card's one stream a closed encoder's blocks serve the next, so the
@@ -1021,7 +1228,10 @@ def phase_encoder_churn():
     out = {"phase": "encoder_churn", "width": W, "height": H,
            "cycles": CHURN_CYCLES, "frames_per_cycle": CHURN_FRAMES,
            "reserved_mb": {}}
-    for name, make in (("jpeg", _pipeline), ("x264enc-striped", _h264_pipeline)):
+    for name, make in (("jpeg", _pipeline), ("x264enc-striped", _h264_pipeline),
+                       ("x264enc", _fullframe_pipeline),
+                       ("x264enc-striped/host",
+                        lambda: _served("x264enc-striped", "host"))):
         readings = []
         for _ in range(CHURN_CYCLES):
             drv = make()[2]
@@ -1047,10 +1257,20 @@ def phase_encoder_churn():
     return out
 
 
+#: h264_cross: the encoder configurations held card against CPU
+CROSS_CONFIGS = {
+    "x264enc-striped": dict(stripe_height=STRIPE, entropy="device"),
+    "x264enc": dict(fullframe=True, entropy="device"),
+    "x264enc-striped/host": dict(stripe_height=STRIPE, entropy="host"),
+    "x264enc/host": dict(fullframe=True, entropy="host"),
+}
+
+
 def phase_h264_cross():
     """A short 1920x256 sequence (IDR, 3 scrolled P frames, static frames
     up to paint-over, a keyframe request, one more P frame) encoded on the
-    card and on the CPU: every Annex-B stripe must be byte-equal."""
+    card and on the CPU, striped and full-frame, with each entropy tier:
+    every Annex-B stripe must be byte-equal."""
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
     from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
 
@@ -1058,31 +1278,40 @@ def phase_h264_cross():
     src = SyntheticSource(w, h, pattern="scroll", seed=7)
     frames = [src.next_frame() for _ in range(4)]
     frames += [frames[-1]] * 3 + [frames[-1], src.next_frame()]
-    kw = dict(stripe_height=STRIPE, paint_over_trigger_frames=2)
-    gpu = H264StripeEncoder(w, h, device=DEVICE, **kw)
-    cpu = H264StripeEncoder(w, h, device="cpu", **kw)
-    same = total = keys = 0
-    paint_frames = 0
-    for k, f in enumerate(frames):
-        if k == 7:
-            gpu.request_keyframe()
-            cpu.request_keyframe()
-        a, b = gpu.encode_frame(f), cpu.encode_frame(f)
-        check([(s.y_start, s.is_key) for s in a]
-              == [(s.y_start, s.is_key) for s in b],
-              f"h264_cross frame {k}: card and CPU emitted different stripes")
-        total += len(a)
-        keys += sum(s.is_key for s in a)
-        same += sum(x.annexb == y.annexb for x, y in zip(a, b))
-        paint_frames += int(k in (4, 5, 6) and bool(a))
-    check(same == total, f"h264_cross: {same} of {total} stripes equal")
-    check(keys == 2 * gpu.n_stripes and paint_frames == 1,
-          f"h264_cross: {keys} key stripes, {paint_frames} paint-over frames")
-    check(gpu.entropy_errors_total == 0, "h264_cross: entropy errors")
-    return {"phase": "h264_cross", "width": w, "height": h,
-            "frames": len(frames), "stripes": total,
-            "stripes_identical": same, "key_stripes": keys,
-            "paint_over_frames": paint_frames}
+    out = {"phase": "h264_cross", "width": w, "height": h,
+           "frames": len(frames), "configs": {}}
+    for name, cfg in CROSS_CONFIGS.items():
+        kw = dict(paint_over_trigger_frames=2, **cfg)
+        gpu = H264StripeEncoder(w, h, device=DEVICE, **kw)
+        cpu = H264StripeEncoder(w, h, device="cpu", **kw)
+        same = total = keys = 0
+        paint_frames = 0
+        for k, f in enumerate(frames):
+            if k == 7:
+                gpu.request_keyframe()
+                cpu.request_keyframe()
+            a, b = gpu.encode_frame(f), cpu.encode_frame(f)
+            check([(s.y_start, s.is_key) for s in a]
+                  == [(s.y_start, s.is_key) for s in b],
+                  f"h264_cross {name} frame {k}: card and CPU emitted "
+                  "different stripes")
+            total += len(a)
+            keys += sum(s.is_key for s in a)
+            same += sum(x.annexb == y.annexb for x, y in zip(a, b))
+            paint_frames += int(k in (4, 5, 6) and bool(a))
+        check(same == total,
+              f"h264_cross {name}: {same} of {total} stripes equal")
+        check(keys == 2 * gpu.n_stripes and paint_frames == 1,
+              f"h264_cross {name}: {keys} key stripes, {paint_frames} "
+              "paint-over frames")
+        check(gpu.entropy_errors_total == 0,
+              f"h264_cross {name}: entropy errors")
+        out["configs"][name] = {"stripes": total, "stripes_identical": same,
+                                "key_stripes": keys,
+                                "paint_over_frames": paint_frames,
+                                "host_coded_stripes":
+                                    gpu.host_coded_stripes_total}
+    return out
 
 
 def dct_planes_of(root: str) -> int:
@@ -1173,6 +1402,45 @@ def main() -> int:
     kern_me["launches"] = launches
     check(launches > 0, "the H.264 path never launched me_mc_stripes")
     check(dct8_quant_zigzag.launches == 0, "the H.264 path launched dct8")
+    kern_me["launches_by_path"] = {"x264enc-striped": launches}
+    kern["launches_by_path"] = {"jpeg": kern["launches"]}
+
+    # the full-frame x264enc path: counts from 0 just before, read after
+    _settle("h264_fullframe_encoder")
+    dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    h264_full = phase_h264_encoder("x264enc")
+    full_launches = me_mc_stripes.launches
+    check(full_launches == h264_full["p_frames_dispatched"],
+          f"x264enc: {full_launches} me_mc launches for "
+          f"{h264_full['p_frames_dispatched']} P frames (1 per P frame)")
+    _settle("server_fullframe")
+    server_full = phase_server("x264enc")
+    launches = me_mc_stripes.launches
+    server_full["me_mc_launches"] = launches - full_launches
+    check(server_full["me_mc_launches"] >= server_full["frames_received"] - 1,
+          "x264enc server path did not run me_mc for every P frame")
+    check(dct8_quant_zigzag.launches == 0, "the x264enc path launched dct8")
+    kern_me["launches_by_path"]["x264enc"] = launches
+    h264_full["noise_qp18"] = check_fullframe_large_payload()
+
+    # the host rungs, each its own path; then each against its device rung
+    host = {}
+    for profile, kernel, other, expect in (
+            ("x264enc-striped", me_mc_stripes, dct8_quant_zigzag,
+             "p_frames_dispatched"),
+            ("jpeg", dct8_quant_zigzag, me_mc_stripes, "frames_dispatched")):
+        _settle(f"host_rung/{profile}")
+        dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+        out, runs = phase_host_rung(profile)
+        launches = kernel.launches
+        check(launches == out[expect] and other.launches == 0,
+              f"{profile} host rung: {launches} launches for "
+              f"{out[expect]} {expect}, {other.launches} of the other kernel")
+        out["kernel_launches"] = launches
+        (kern_me if kernel is me_mc_stripes else kern)[
+            "launches_by_path"][f"{profile}/host"] = launches
+        check_host_rung(profile, out, runs)
+        host[profile] = out
 
     _settle("encoder_churn")
     churn = phase_encoder_churn()
@@ -1182,16 +1450,24 @@ def main() -> int:
     prof = phase_profile(_pipeline, "dct8_quant_zigzag", "profile")
     _settle("profile_h264")
     prof_h264 = phase_profile(_h264_pipeline, "me_mc_kernel", "profile_h264")
+    _settle("profile_fullframe")
+    prof_full = phase_profile(_fullframe_pipeline, "me_mc_kernel",
+                              "profile_fullframe")
 
     emit({"kernels": [kern, kern_me]})
     emit(enc)
     emit(h264)
+    emit(h264_full)
+    emit(host["x264enc-striped"])
+    emit(host["jpeg"])
     emit(server)
     emit(server_h264)
+    emit(server_full)
     emit(churn)
     emit(cross)
     emit(prof)
     emit(prof_h264)
+    emit(prof_full)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "settled": SETTLED})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -40,7 +40,8 @@ class AsyncEncodeDriver:
     own.
 
     Capture-loop surface: ``try_submit`` / ``poll`` / ``flush`` /
-    ``force_keyframe`` / ``close`` / ``stats`` / ``on_error``.
+    ``force_keyframe`` / ``close`` / ``stats`` / ``on_error`` — plus
+    ``wire_fullframe`` for the server's stripe packer.
     """
 
     #: seconds the driver thread sleeps between harvest polls when work
@@ -48,9 +49,12 @@ class AsyncEncodeDriver:
     #: cheap; the short beat keeps both submit and harvest latency low)
     POLL_INTERVAL_S = 0.002
 
-    def __init__(self, pipe) -> None:
+    def __init__(self, pipe, *, wire_fullframe: bool = False) -> None:
         self.pipe = pipe
         self.submit_depth = max(4, pipe.depth)
+        #: ship each frame as one 0x00 full-frame packet instead of 0x04
+        #: stripes (the x264enc profile); read by the server only
+        self.wire_fullframe = bool(wire_fullframe)
         #: called with the exception for every frame lost to a
         #: device/entropy error (driver thread context); the server's
         #: capture loop ends the display on it

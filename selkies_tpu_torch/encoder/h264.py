@@ -1,16 +1,21 @@
-"""H.264 Constrained-Baseline striped encoder, the ``x264enc-striped``
-profile (counterpart of ``selkies_tpu/encoder/h264.py``).
+"""H.264 Constrained-Baseline encoder of the ``x264enc-striped`` and
+``x264enc`` profiles (counterpart of ``selkies_tpu/encoder/h264.py``).
 
 Each horizontal stripe is an independent H.264 sequence with its own
 SPS/PPS/IDR chain, so the client runs one decoder per stripe and only
-damaged stripes are encoded and shipped.
+damaged stripes are encoded and shipped. ``fullframe=True`` is the
+``x264enc`` profile: one stripe covering the whole frame, which the server
+ships as 0x00 full-frame packets.
 
 Split of work:
   * device (``h264_device.py``): color/4:2:0, the motion-search kernel,
     transforms, quant, the decoder-exact reconstruction and, for P frames,
-    the CAVLC pack (``device_cavlc.py``);
-  * host (``native/cavlc.cpp``): CAVLC for IDR pictures and for P stripes
-    whose device pack overflowed;
+    either the CAVLC pack (``device_cavlc.py``, ``entropy="device"``) or
+    the block-sparse pack of the levels (``entropy="host"``);
+  * host (``native/cavlc.cpp``): CAVLC for IDR pictures, for P stripes
+    whose device pack overflowed and, with ``entropy="host"``, for every
+    emitted P stripe; the stripes of one frame are coded in a small thread
+    pool (the ctypes call releases the GIL);
   * here: stripe/GOP orchestration, damage gating, paint-over (low-QP P
     frames), SPS/PPS, slice-header glue and the reference-plane state.
 
@@ -21,8 +26,11 @@ an event that :meth:`H264StripeEncoder.harvest` waits on.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import logging
+import os
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -39,6 +47,24 @@ from .staging import HostCopy
 logger = logging.getLogger("selkies_tpu_torch.encoder.h264")
 
 MB = 16
+#: the host tier ships at most 1/CAP_FRAC of a stripe's cells before the
+#: stripe overflows to its exact levels (the JAX encoder's default)
+CAP_FRAC = 8
+
+_POOL: Optional[concurrent.futures.ThreadPoolExecutor] = None
+_POOL_LOCK = threading.Lock()
+
+
+def _entropy_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """Shared thread pool for the host coding of one frame's stripes (the
+    C coder releases the GIL, so they run concurrently)."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 4),
+                thread_name_prefix="cavlc")
+        return _POOL
 
 
 # ---------------------------------------------------------------------------
@@ -219,12 +245,21 @@ class _H264Pending:
     is_idr: bool
     paint: np.ndarray
     qp: np.ndarray
-    buf: Optional[torch.Tensor] = None   # full device-CAVLC buffer (P)
+    buf: Optional[torch.Tensor] = None   # full device buffer (P): CAVLC
+                                         # payloads or the sparse levels
     head: Optional[torch.Tensor] = None  # its fetch prefix (P)
 
 
 class H264StripeEncoder:
-    """Striped H.264 encoder with damage gating and device CAVLC.
+    """Striped (or full-frame) H.264 encoder with damage gating.
+
+    ``fullframe=True`` is the ``x264enc`` profile: one stripe of the whole
+    (16-row padded) frame; the 0x00 wire routing is the adapter's
+    ``wire_fullframe`` flag, not this class's. ``entropy`` picks the P-frame
+    tier: ``"device"`` packs bit-exact CAVLC payloads on the device,
+    ``"host"`` ships the block-sparse levels and codes them with the
+    native coder; ``None`` reads ``SELKIES_TPU_H264_ENTROPY`` (default
+    ``device``). Both give the same bytes.
 
     ``device=None`` runs on the card (and raises without one); the tests
     pass ``device="cpu"``, where the motion-search wrapper takes its plain
@@ -233,6 +268,7 @@ class H264StripeEncoder:
     def __init__(self, width: int, height: int, *, stripe_height: int = 64,
                  qp: int = 26, paint_over_qp: int = 18,
                  paint_over_trigger_frames: int = 15, search: int = 12,
+                 fullframe: bool = False, entropy: Optional[str] = None,
                  device=None) -> None:
         if width % 2 or height % 2:
             raise ValueError("frame dimensions must be even")
@@ -246,7 +282,8 @@ class H264StripeEncoder:
         self.paint_over_trigger = paint_over_trigger_frames
         self.search = search
         self.pad_w = (width + MB - 1) // MB * MB
-        sh = (stripe_height + MB - 1) // MB * MB
+        sh = height if fullframe else stripe_height
+        sh = (sh + MB - 1) // MB * MB
         self.stripe_h = sh
         self.stripes: List[_StripeState] = []
         y = 0
@@ -280,22 +317,48 @@ class H264StripeEncoder:
                         ((n, 4, 4), 16 * n), ((n, 2, 2, 2), 8 * n),
                         ((n, 2, 4, 4, 4), 128 * n)]
         self._stripe_words = sum(s for _, s in self._shapes)
+        #: block-sparse geometry of the host tier (dev._pack_sparse)
+        self._pad_words, self._n_cells, self._cap_cells = \
+            dev.sparse_geometry(self._stripe_words, CAP_FRAC)
 
-        #: device-CAVLC transfer geometry: a fixed head, then the payloads.
-        #: Two fetch tiers: static content ships the small prefix, busy
-        #: content the sized one (~pixels/80: full-damage 1080p scroll runs
-        #: ~12.7 KB of bitstream per frame); an undershoot re-reads.
-        self._cavlc_msb = dcav.default_max_stripe_bytes(
-            self.pad_w // MB, sh // MB)
-        self._fixed_bytes = dcav.HEAD_BYTES * self.n_stripes
-        self._buf_bytes = self._fixed_bytes + self.n_stripes * self._cavlc_msb
-        self._guess_bytes = self._bucket(self._fixed_bytes + (16 << 10))
-        self._prefix_large = self._bucket(
-            self._fixed_bytes + max(24 << 10, self.pad_h * self.pad_w // 80))
+        if entropy is None:
+            entropy = os.environ.get("SELKIES_TPU_H264_ENTROPY", "device")
+        if entropy not in ("device", "host"):
+            raise ValueError(f"entropy must be device|host, got {entropy!r}")
+        self.entropy = entropy
+        #: transfer geometry: a fixed head, then the content. Two fetch
+        #: tiers: static content ships the small prefix, busy content the
+        #: sized one; an undershoot re-reads.
+        if entropy == "device":
+            # the head, then the CAVLC payloads (~pixels/80: full-damage
+            # 1080p scroll runs ~12.7 KB of bitstream per frame)
+            self._cavlc_msb = dcav.default_max_stripe_bytes(
+                self.pad_w // MB, sh // MB)
+            self._fixed_bytes = dcav.HEAD_BYTES * self.n_stripes
+            self._buf_bytes = self._fixed_bytes \
+                + self.n_stripes * self._cavlc_msb
+            self._guess_bytes = self._bucket(self._fixed_bytes + (16 << 10))
+            self._prefix_large = self._bucket(
+                self._fixed_bytes
+                + max(24 << 10, self.pad_h * self.pad_w // 80))
+        else:
+            # the head and cell bitmaps, then the nonzero cells
+            # (full-damage content runs ~pixels/20 in cells)
+            self._cavlc_msb = 0
+            self._fixed_bytes = 4 * self.n_stripes \
+                + self.n_stripes * (self._n_cells // 8)
+            self._buf_bytes = self._fixed_bytes \
+                + self.n_stripes * self._cap_cells * dev.CELL
+            self._guess_bytes = self._bucket(self._fixed_bytes + (64 << 10))
+            self._prefix_large = self._bucket(
+                self._fixed_bytes
+                + max(96 << 10, self.pad_h * self.pad_w // 20))
         self._prefix_small = self._bucket(self._fixed_bytes + 4096)
 
-        #: host entropy wall time and D2H re-read bytes per harvested frame
+        #: host entropy wall time, and the D2H bytes of the fetches made by
+        #: harvest itself (not a pipeline's) and of the re-reads
         self.host_entropy_ms_total = 0.0
+        self.d2h_fetch_bytes_total = 0
         self.d2h_refetch_bytes_total = 0
         #: P stripes coded on the host because their device pack overflowed
         self.host_coded_stripes_total = 0
@@ -380,6 +443,19 @@ class H264StripeEncoder:
                         n_stripes=self.n_stripes, sh=self.stripe_h)
                 buf = head = None
                 fetch_arr = flat16
+            elif self.entropy == "host":
+                (buf, head, flat16, self._prev_y, self._prev_cb,
+                 self._prev_cr, self._ref_y, self._ref_cb, self._ref_cr) = \
+                    dev.encode_frame_p_rgb(
+                        rgb, self._prev_y, self._prev_cb, self._prev_cr,
+                        self._ref_y, self._ref_cb, self._ref_cr,
+                        self._upload(paint.astype(np.int32)),
+                        self.qp, self.paint_over_qp,
+                        pad_h=self.pad_h, pad_w=self.pad_w,
+                        n_stripes=self.n_stripes, sh=self.stripe_h,
+                        search=self.search, cap_frac=CAP_FRAC,
+                        prefix=self._choose_prefix())
+                fetch_arr = head
             else:
                 (buf, head, flat16, self._prev_y, self._prev_cb,
                  self._prev_cr, self._ref_y, self._ref_cb, self._ref_cr) = \
@@ -412,7 +488,7 @@ class H264StripeEncoder:
     def _refetch_overflow_rows(self, p: _H264Pending, damage, ovf):
         """Exact flat16 rows of the emitting stripes whose device pack
         overflowed (rare: |level| beyond the escape range, or a stripe past
-        its byte budget)."""
+        its byte or cell budget)."""
         need = [i for i in range(self.n_stripes)
                 if ovf[i] and (damage[i] or p.paint[i])]
         if not need:
@@ -420,6 +496,18 @@ class H264StripeEncoder:
         rows = self._to_host(p.flat16[need])
         self.d2h_refetch_bytes_total += rows.nbytes
         return dict(zip(need, rows))
+
+    def _sparse_row(self, host: np.ndarray, bitmap: np.ndarray, start: int,
+                    used: int) -> np.ndarray:
+        """One stripe's dense level row from its cell bitmap and its
+        compacted nonzero cells."""
+        bits = np.unpackbits(bitmap, bitorder="little")
+        idx = np.flatnonzero(bits[:self._n_cells])
+        cells = host[start:start + used].view(np.int8).astype(np.int32) \
+            .reshape(-1, dev.CELL)
+        dense = np.zeros(self._pad_words, np.int32)
+        dense.reshape(-1, dev.CELL)[idx[:len(cells)]] = cells
+        return dense[:self._stripe_words]
 
     def harvest(self, p: _H264Pending,
                 host: Optional[np.ndarray] = None) -> List[H264Stripe]:
@@ -429,12 +517,13 @@ class H264StripeEncoder:
         if host is None:
             host = p.fetch.numpy() if p.fetch is not None else \
                 self._to_host(p.flat16 if p.is_idr else p.head)
+            self.d2h_fetch_bytes_total += host.nbytes
         S = self.n_stripes
         if p.is_idr:
             levels16 = host
             damage = np.ones(S, bool)
             refetch = {}
-        else:
+        elif self.entropy == "device":
             t_bits, base_words, damage, ovf = dcav.parse_cavlc_head(host, S)
             # mirror the device's per-stripe word clip: an overflowing
             # stripe records its unclipped t_bits but compacts at most V
@@ -442,6 +531,22 @@ class H264StripeEncoder:
             wc = np.minimum((t_bits + 31) // 32, self._cavlc_msb // 4)
             needed = self._fixed_bytes + 4 * int(base_words[-1] + wc[-1])
             host = self._recover_undershoot(p, host, needed)
+            refetch = self._refetch_overflow_rows(p, damage, ovf)
+        else:
+            head = host[:4 * S].reshape(S, 4)
+            # the head keeps the cell count's low 16 bits; a count past the
+            # cap (wrapped or not) comes with the overflow flag
+            counts = head[:, 0].astype(np.int64) \
+                + (head[:, 1].astype(np.int64) << 8)
+            damage = head[:, 2] != 0
+            ovf = head[:, 3] != 0
+            used = np.minimum(counts, self._cap_cells) * dev.CELL
+            needed = self._fixed_bytes + int(used.sum())
+            host = self._recover_undershoot(p, host, needed)
+            bitmaps = host[4 * S:self._fixed_bytes] \
+                .reshape(S, self._n_cells // 8)
+            starts = np.concatenate(
+                [[0], np.cumsum(used)[:-1]]) + self._fixed_bytes
             refetch = self._refetch_overflow_rows(p, damage, ovf)
 
         mb_w = self.pad_w // MB
@@ -464,15 +569,20 @@ class H264StripeEncoder:
                 st.static_frames += 1
             if not emit:
                 continue
-            if not p.is_idr and i not in refetch:
+            if p.is_idr:
+                row = levels16[i].astype(np.int32)
+            elif i in refetch:
+                self.host_coded_stripes_total += 1
+                row = refetch[i].astype(np.int32)
+            elif self.entropy == "device":
                 # the device coded this stripe: header/escape glue only
                 jobs.append((i, st, is_key, int(p.qp[i]),
                              dcav.payload_slice(host, S, base_words,
                                                 t_bits, i)))
                 continue
-            if not p.is_idr:
-                self.host_coded_stripes_total += 1
-            row = (levels16[i] if p.is_idr else refetch[i]).astype(np.int32)
+            else:
+                row = self._sparse_row(host, bitmaps[i], int(starts[i]),
+                                       int(used[i]))
             parts, pos = [], 0
             for shape, size in self._shapes:
                 parts.append(row[pos:pos + size].reshape(shape))
@@ -490,13 +600,17 @@ class H264StripeEncoder:
                 idr_pic_id=st.idr_pic_id)
             return self._sps_pps_for(st) + nals if is_key else nals
 
-        t0 = time.perf_counter()
-        payloads = []
-        for job in jobs:
+        def safe_one(job):
             try:
-                payloads.append(run_one(job))
+                return run_one(job)
             except Exception as exc:     # surfaced per stripe below
-                payloads.append(exc)
+                return exc
+
+        t0 = time.perf_counter()
+        if len(jobs) > 1:
+            payloads = list(_entropy_pool().map(safe_one, jobs))
+        else:
+            payloads = [safe_one(job) for job in jobs]
         self.host_entropy_ms_total += (time.perf_counter() - t0) * 1000.0
 
         out: List[H264Stripe] = []

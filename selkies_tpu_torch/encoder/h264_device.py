@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import h264_transform as ht
 from ..ops.color import rgb_to_ycbcr_fused, subsample_420
@@ -274,8 +275,8 @@ def _frame_p_core(y, cb, cr, prev_y, prev_cb, prev_cr, ref_y, ref_cb,
 def _pack_levels(enc: StripeEncodeOut) -> torch.Tensor:
     """flat16 [S, words] int16: the exact concat of (mv, luma, luma_dc,
     chroma_dc, chroma_ac) per stripe, the host coder's input. (The JAX
-    package also derives an int8 copy for its host-entropy tier, which
-    this profile does not use.)"""
+    package also derives a dense int8 copy, which the port does not use:
+    its host tier ships the block-sparse pack, :func:`_pack_sparse`.)"""
     S = enc.mv.shape[0]
     parts = [enc.mv, enc.luma, enc.luma_dc, enc.chroma_dc, enc.chroma_ac]
     return torch.cat([p.reshape(S, -1) for p in parts], dim=1) \
@@ -332,3 +333,95 @@ def encode_frame_p_cavlc_rgb(rgb, prev_y, prev_cb, prev_cr, ref_y, ref_cb,
         enc.mv, enc.luma, enc.chroma_dc, enc.chroma_ac, damage, update,
         mb_w=pad_w // MB, mb_h=sh // MB, max_stripe_bytes=max_stripe_bytes)
     return (buf, buf[:prefix], _pack_levels(enc), y, cb, cr, nry, nrcb, nrcr)
+
+
+#: sparse pack geometry: levels are grouped into 16-element cells; a
+#: per-cell nonzero bitmap + the compacted nonzero cells are the transfer
+CELL = 16
+_BIT_WEIGHTS = np.array([1 << k for k in range(8)], np.int32)
+
+
+def sparse_geometry(stripe_words: int,
+                    cap_frac: int = 4) -> "tuple[int, int, int]":
+    """(padded_words, n_cells, cap_cells) for one stripe's flat16 row."""
+    pad_words = -(-stripe_words // (CELL * 8)) * (CELL * 8)
+    n_cells = pad_words // CELL
+    cap = max(1, n_cells // cap_frac)
+    return pad_words, n_cells, cap
+
+
+def _pack_sparse(flat16: torch.Tensor, damage: torch.Tensor,
+                 update: torch.Tensor, cap_frac: int = 4) -> torch.Tensor:
+    """Block-sparse pack of the level buffer (P frames, host entropy).
+
+    Most 16-element cells of the levels are all-zero at streaming QPs, so
+    the fetch is a per-cell bitmap plus only the nonzero cells, compacted
+    back to back across stripes, and the host reads a prefix sized by the
+    content. The uint8 buffer:
+
+      head   [S, 4]  — count_lo, count_hi, damage, overflow
+      bitmap [S, n_cells/8] — LSB-first cell-nonzero bits
+      cells  [S*cap*CELL] — int8 cell values, stripes back to back in
+             bitmap order, zero after the last used cell
+
+    The head keeps the count's low 16 bits only (a full-frame 1080p stripe
+    has 209,104 cells, so the count can wrap); a stripe with more nonzero
+    cells than ``cap`` or a |level| > 127 sets its overflow flag, and the
+    host re-reads that stripe's exact flat16 row.
+    """
+    S, W = flat16.shape
+    dev = flat16.device
+    pad_words, n_cells, cap = sparse_geometry(W, cap_frac)
+    blk = F.pad(flat16, (0, pad_words - W)).reshape(S, n_cells, CELL)
+    nzb = (blk != 0).any(-1) & update.to(torch.bool)[:, None]     # [S, B]
+    count = nzb.sum(1, dtype=torch.int64)                          # [S]
+    # nonzero cells first, each group in its original order: a stable
+    # sort of an integer key (0 = nonzero), not of the bool tensor
+    order = torch.sort((~nzb).to(torch.uint8), dim=1,
+                       stable=True).indices[:, :cap]
+    cells16 = torch.gather(blk, 1, order[:, :, None].expand(S, cap, CELL))
+    range_ovf = (cells16.to(torch.int32).abs() > 127).flatten(1).any(1)
+    ovf = range_ovf | (count > cap)
+    cells8 = cells16.clamp(-127, 127).to(torch.int8)
+
+    bitmap = (nzb.reshape(S, n_cells // 8, 8).to(torch.int32)
+              * ht.const(_BIT_WEIGHTS, dev)).sum(-1).to(torch.uint8)
+
+    # compact the used cells back to back across stripes
+    used = torch.clamp(count, max=cap) * CELL                      # bytes
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum(used, 0)[:-1]])
+    total_cap = S * cap * CELL
+    j = torch.arange(total_cap, dtype=torch.int64, device=dev)
+    sidx = (torch.searchsorted(starts, j, right=True) - 1).clamp(0, S - 1)
+    within = j - starts[sidx]
+    valid = within < used[sidx]
+    flat_cells = cells8.reshape(S, cap * CELL)
+    gathered = flat_cells[sidx, within.clamp(0, cap * CELL - 1)]
+    cells_out = torch.where(valid, gathered, torch.zeros_like(gathered))
+
+    head = torch.stack([count & 0xFF, (count >> 8) & 0xFF,
+                        damage.to(torch.int64), ovf.to(torch.int64)],
+                       dim=1).to(torch.uint8)                      # [S, 4]
+    return torch.cat([head.reshape(-1), bitmap.reshape(-1),
+                      cells_out.view(torch.uint8)])
+
+
+def encode_frame_p_rgb(rgb, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr,
+                       paint, qp: int, paint_qp: int, *, pad_h: int,
+                       pad_w: int, n_stripes: int, sh: int,
+                       search: int = SEARCH, cap_frac: int = 4,
+                       prefix: int):
+    """P frame for host entropy: planes, damage, motion search, transform
+    / quant / recon and the block-sparse pack of the levels in one step.
+    Returns (buf, head, flat16, y, cb, cr, ref_y, ref_cb, ref_cr): ``buf``
+    is the :func:`_pack_sparse` buffer, ``head`` its first ``prefix`` bytes
+    (the fetch), ``flat16`` the exact levels kept on the device for
+    overflowed stripes."""
+    y, cb, cr = prepare_planes(rgb, pad_h, pad_w)
+    enc, damage, update, nry, nrcb, nrcr = _frame_p_core(
+        y, cb, cr, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr,
+        paint, qp, paint_qp, n_stripes=n_stripes, sh=sh, search=search)
+    flat16 = _pack_levels(enc)
+    buf = _pack_sparse(flat16, damage, update, cap_frac=cap_frac)
+    return (buf, buf[:prefix], flat16, y, cb, cr, nry, nrcb, nrcr)

@@ -11,11 +11,17 @@ static stripe once at the paint-over quality after
 Stripes whose device pack overflowed its word budget are host-coded with
 :mod:`.entropy_py` — part of the function, not a fallback: the output bytes
 are the same either way, and ``host_fallback_stripes_total`` counts them.
+
+``entropy="host"`` is the host rung: the same device step without the
+packer (one DCT+quant launch per frame), then the coefficient planes are
+fetched and every emitted stripe is coded by the native scan coder
+(``native/entropy.cpp``). Its stripe bytes equal the device rung's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from .._device import encoder_stream, resolve_device
+from ..native import entropy_lib
 from ..ops.color import rgb_to_ycbcr, subsample_420
 from ..ops.dct_quant import dct8_quant_zigzag
 from ..ops.quant import quality_scaled_tables
@@ -30,6 +37,7 @@ from . import entropy_py
 from .device_entropy import (DeviceEntropyPacker, stuff_bytes,
                              words_to_stripe_bytes)
 from .jfif import EOI, jfif_headers
+from .jpeg_tables import std_tables
 from .staging import StagingRing
 
 #: device packer geometry of the streaming step (selkies_tpu/encoder/jpeg.py
@@ -129,6 +137,27 @@ def split_meta(head_np: np.ndarray, n_stripes: int):
     return nbytes, base, ovf, damage
 
 
+def _entropy_encode_420(y: np.ndarray, cb: np.ndarray,
+                        cr: np.ndarray) -> bytes:
+    """One stripe's 4:2:0 scan (y [by, bx, 64], cb/cr [by/2, bx/2, 64]
+    int16) by the native coder. Its buffer holds the worst case (under 4
+    bytes a coefficient, twice that with byte stuffing), so a short buffer
+    is a fault and raises."""
+    lib = entropy_lib()
+    dc_l, ac_l, dc_c, ac_c = std_tables()
+    cap = (y.size + cb.size + cr.size) * 8 + 4096
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.jpeg_encode_scan_420(
+        np.ascontiguousarray(y, np.int16), np.ascontiguousarray(cb, np.int16),
+        np.ascontiguousarray(cr, np.int16), y.shape[0], y.shape[1],
+        dc_l.code_arr, dc_l.len_arr, ac_l.code_arr, ac_l.len_arr,
+        dc_c.code_arr, dc_c.len_arr, ac_c.code_arr, ac_c.len_arr,
+        out, cap)
+    if n < 0:
+        raise RuntimeError(f"JPEG scan coder ran out of its {cap}-byte buffer")
+    return out[:n].tobytes()
+
+
 def _recip(tables: np.ndarray) -> np.ndarray:
     """f32 reciprocal quant tables, computed once the way the JAX step does
     (``1.0 / tables`` in f32): quantizing multiplies, never divides."""
@@ -153,13 +182,17 @@ class JpegStripeEncoder:
         use_paint_over_quality: bool = True,
         paint_over_trigger_frames: int = 15,
         damage_threshold: int = 0,
+        entropy: str = "device",
         watermark_path: str = "",
         watermark_location: int = -1,
         device=None,
     ) -> None:
         if stripe_height % 16:
             raise ValueError("stripe_height must be a multiple of 16 (4:2:0 MCUs)")
+        if entropy not in ("device", "host"):
+            raise ValueError(f"unknown entropy mode {entropy!r}")
         self.device = resolve_device(device)
+        self.entropy = entropy
         self.width = width
         self.height = height
         # Padded geometry: width to 16 (MCU), height to a stripe multiple.
@@ -178,6 +211,9 @@ class JpegStripeEncoder:
 
         #: overflowed stripes host-coded from their coefficients
         self.host_fallback_stripes_total = 0
+        #: host rung: coefficient bytes fetched and host coding wall time
+        self.d2h_fetch_bytes_total = 0
+        self.host_entropy_ms_total = 0.0
 
         with self.stream_context():
             self.set_quality(quality, paintover_quality)
@@ -185,14 +221,15 @@ class JpegStripeEncoder:
                                      dtype=torch.uint8, device=self.device)
             self._wm_scaled, self._alpha_inv = self._load_watermark(
                 watermark_path, watermark_location)
-            self._step = DeviceStep(self.pad_h, self.pad_w, self.stripe_h,
-                                    self.device)
+            if entropy == "device":
+                self._step = DeviceStep(self.pad_h, self.pad_w,
+                                        self.stripe_h, self.device)
+                self._packer = self._step.packer
         self._static_frames = np.zeros(self.n_stripes, dtype=np.int64)
         self._painted = np.zeros(self.n_stripes, dtype=bool)
         self._first_frame = True
         self._staging = StagingRing(depth=2, device=self.device)
         self._staging_ticket: Optional[tuple] = None
-        self._packer = self._step.packer
         self.synchronize()
 
     # -- device plumbing ---------------------------------------------------
@@ -393,6 +430,8 @@ class JpegStripeEncoder:
         """Encode one [H, W, 3] uint8 RGB frame; returns changed stripes only."""
         frame = self._pad(np.asarray(frame, dtype=np.uint8))
         paint_candidate = self._paint_candidates()
+        if self.entropy == "host":
+            return self._encode_frame_host(frame, paint_candidate)
         with self.stream_context():
             packed, yq, cbq, crq = self._step(
                 self._stage_frame(frame), self._prev, self._recip_y,
@@ -412,6 +451,36 @@ class JpegStripeEncoder:
                 words_np = packed[mw:mw + bucket].cpu().numpy()
             scans = self._scans_from_packed(
                 words_np, base_np, nbytes_np, ovf_np, emit, yq, cbq, crq)
+        return self._assemble(emit, is_paint, scans)
+
+    def _encode_frame_host(self, frame: np.ndarray,
+                           paint_candidate: np.ndarray) -> List[StripeOutput]:
+        """The host rung: the device step without the packer, one fetch of
+        the coefficient planes and damage, native coding of each emitted
+        stripe."""
+        with self.stream_context():
+            yq, cbq, crq, damage, new_prev = encode_body(
+                self._stage_frame(frame), self._prev, self._recip_y,
+                self._recip_c, self._qsel(paint_candidate),
+                stripe_h=self.stripe_h, wm_scaled=self._wm_scaled,
+                alpha_inv=self._alpha_inv)
+            self._prev.copy_(new_prev)
+            yq, cbq, crq, damage = (t.cpu().numpy()
+                                    for t in (yq, cbq, crq, damage))
+        self.d2h_fetch_bytes_total += sum(
+            a.nbytes for a in (yq, cbq, crq, damage))
+        emit, is_paint = self._decide_emits(
+            damage > self.damage_threshold, paint_candidate)
+        yrows, crows = self.stripe_h // 8, self.stripe_h // 16
+        t0 = time.perf_counter()
+        scans = [
+            _entropy_encode_420(yq[s * yrows:(s + 1) * yrows],
+                                cbq[s * crows:(s + 1) * crows],
+                                crq[s * crows:(s + 1) * crows])
+            if emit[s] else b""
+            for s in range(self.n_stripes)
+        ]
+        self.host_entropy_ms_total += (time.perf_counter() - t0) * 1000.0
         return self._assemble(emit, is_paint, scans)
 
     def force_keyframe(self) -> None:

@@ -1,8 +1,9 @@
 """Pipelined encoders: overlap device steps, device-to-host copies and host
 assembly (counterpart of ``selkies_tpu/encoder/pipeline.py``):
 :class:`PipelinedJpegEncoder` for the JPEG-stripe profile and
-:class:`PipelinedH264Encoder` (one frame per dispatch) for
-``x264enc-striped``.
+:class:`PipelinedH264Encoder` (one frame per dispatch) for the H.264
+profiles; and :class:`ThreadedEncoderAdapter`, which runs a synchronous
+``encode_frame`` (the host-entropy rungs) on a worker thread.
 
 PyTorch launches asynchronously on a CUDA stream; the only blocking points
 are host reads. This wrapper keeps several frames in flight: submit(frame
@@ -28,6 +29,8 @@ profile adds its device step (``_start``), the prefix it fetches
 
 from __future__ import annotations
 
+import logging
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -38,6 +41,8 @@ import torch
 
 from .jpeg import META_WORDS_PER_STRIPE, JpegStripeEncoder, StripeOutput, split_meta
 from .staging import HostCopy, StagingRing, StagingTicket
+
+logger = logging.getLogger("selkies_tpu_torch.encoder.pipeline")
 
 
 def _p50(samples) -> float:
@@ -487,3 +492,187 @@ class PipelinedH264Encoder(_Pipeline):
 
     def _finish(self, item: _H264InFlight) -> list:
         return self.base.harvest(item.pending, host=item.host)
+
+
+class ThreadedEncoderAdapter:
+    """submit()/poll()/flush() facade over a synchronous ``encode_frame``
+    encoder (the host-entropy rungs of both codecs), keeping the event loop
+    free: one worker thread encodes frames in submission order, and a
+    bounded queue drops frames under overload exactly as ``try_submit``
+    does.
+
+    On the card the worker runs every call of the encoder inside its
+    ``stream_context()``: PyTorch's current stream is per thread, and every
+    encoder on a card runs on the card's one encoder stream.
+
+    Capture-loop surface: ``try_submit`` / ``poll`` / ``flush`` /
+    ``force_keyframe`` / ``close`` / ``join`` / ``stats`` / ``pop_trace`` /
+    ``on_error``, plus ``wire_fullframe`` for the server's packer.
+    """
+
+    def __init__(self, base, depth: int = 3,
+                 wire_fullframe: bool = False) -> None:
+        self.base = base
+        self.depth = depth
+        #: ship as one 0x00 full-frame packet instead of 0x04 stripes
+        self.wire_fullframe = bool(wire_fullframe)
+        #: called with the exception for every errored frame (in the thread
+        #: that polls or flushes); the server's capture loop ends the
+        #: display on it
+        self.on_error = None
+        self._cond = threading.Condition()
+        self._in_q: deque = deque()        # (seq, frame) not yet started
+        self._out: deque = deque()         # (seq, stripes | exc, interval)
+        self._seq = 0
+        self._finished = 0                 # frames the worker is done with
+        self._stop = False
+        self.frames_completed = 0
+        self.frames_dropped_total = 0
+        self.encode_errors_total = 0
+        self._encode_ms: deque = deque(maxlen=256)
+        #: per-frame intervals of the encode (all of it is "pack": there is
+        #: no separate device dispatch to attribute)
+        self._trace_out: dict = {}
+        self._thread = threading.Thread(target=self._run,
+                                        name="torchenc-host", daemon=True)
+        self._thread.start()
+
+    # -- capture-loop surface -----------------------------------------------
+
+    def stats(self) -> dict:
+        """Drop/error accounting plus the base encoder's transfer and
+        host-entropy gauges (the pipelined encoders' stats keys)."""
+        n = max(1, self.frames_completed)
+        b = self.base
+        d2h = (getattr(b, "d2h_fetch_bytes_total", 0)
+               + getattr(b, "d2h_refetch_bytes_total", 0))
+        with self._cond:
+            encode_ms = list(self._encode_ms)
+        return {
+            "frames": self.frames_completed,
+            "frames_dropped": self.frames_dropped_total,
+            "encode_errors": self.encode_errors_total,
+            "encode_p50_ms": round(_p50(encode_ms), 3),
+            "d2h_bytes_per_frame": d2h / n,
+            "host_entropy_ms_per_frame":
+                getattr(b, "host_entropy_ms_total", 0.0) / n,
+            "entropy_errors": getattr(b, "entropy_errors_total", 0),
+            "host_coded_stripes": getattr(b, "host_coded_stripes_total", 0),
+            "entropy": getattr(b, "entropy", None),
+        }
+
+    def try_submit(self, frame) -> Optional[int]:
+        """Queue one frame; None (dropped) when ``depth`` frames are
+        already queued or encoding."""
+        with self._cond:
+            if self._stop:
+                return None
+            if self._seq - self._finished >= self.depth:
+                self.frames_dropped_total += 1
+                return None
+        return self.submit(frame)
+
+    def submit(self, frame) -> Optional[int]:
+        """Queue one frame whatever the queue's length (None once
+        closed)."""
+        with self._cond:
+            if self._stop:
+                return None
+            seq = self._seq
+            self._seq += 1
+            self._in_q.append((seq, frame))
+            self._cond.notify_all()
+        return seq
+
+    def poll(self) -> List[Tuple[int, list]]:
+        """The frames the worker finished, in submission order (never
+        blocks)."""
+        with self._cond:
+            done = list(self._out)
+            self._out.clear()
+        return self._settle(done)
+
+    def flush(self, timeout: float = 60.0) -> List[Tuple[int, list]]:
+        """Wait until every queued frame is encoded (or failed), then
+        return them. Blocks: warm-up and teardown only."""
+        with self._cond:
+            self._cond.wait_for(
+                lambda: self._finished >= self._seq or self._stop
+                or not self._thread.is_alive(), timeout=timeout)
+            done = list(self._out)
+            self._out.clear()
+        return self._settle(done)
+
+    def pop_trace(self, seq: int):
+        """The encode interval of a harvested frame (once; None if
+        unknown)."""
+        return self._trace_out.pop(seq, None)
+
+    def request_keyframe(self) -> None:
+        rk = getattr(self.base, "request_keyframe", None)
+        if rk is not None:
+            rk()
+        else:
+            self.base.force_keyframe()
+
+    force_keyframe = request_keyframe
+
+    def close(self) -> None:
+        """Stop the worker and abandon queued frames (display teardown).
+        Never blocks: a frame already encoding finishes on the worker,
+        which then exits; :meth:`join` waits for that."""
+        with self._cond:
+            self._stop = True
+            self._in_q.clear()
+            self._out.clear()
+            self._cond.notify_all()
+        self._trace_out.clear()
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the worker to exit after :meth:`close`; True when it
+        has."""
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    # -- worker ---------------------------------------------------------------
+
+    def _settle(self, done) -> List[Tuple[int, list]]:
+        """Results of finished frames; an errored frame is counted and
+        reported to ``on_error``, and costs only itself."""
+        out = []
+        for seq, res, iv in done:
+            if isinstance(res, Exception):
+                self.encode_errors_total += 1
+                logger.error("encode of frame %d failed", seq, exc_info=res)
+                if self.on_error is not None:
+                    try:
+                        self.on_error(res)
+                    except Exception:
+                        logger.exception("on_error hook failed")
+                continue
+            out.append((seq, res))
+            self.frames_completed += 1
+            self._trace_out[seq] = {"pack": iv}
+            while len(self._trace_out) > 4 * max(8, self.depth):
+                self._trace_out.pop(next(iter(self._trace_out)))
+        return out
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                self._cond.wait_for(lambda: self._in_q or self._stop)
+                if self._stop:
+                    return
+                seq, frame = self._in_q.popleft()
+            t0 = time.monotonic()
+            try:
+                with self.base.stream_context():
+                    res = self.base.encode_frame(frame)
+            except Exception as exc:     # reported by _settle
+                res = exc
+            t1 = time.monotonic()
+            with self._cond:
+                self._encode_ms.append((t1 - t0) * 1000.0)
+                self._out.append((seq, res, (t0, t1)))
+                self._finished += 1
+                self._cond.notify_all()

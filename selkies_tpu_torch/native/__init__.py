@@ -1,11 +1,12 @@
 """Host C++ components of the port, built with g++ at first use.
 
-The port's own copy of the H.264 CAVLC slice coder (``cavlc.cpp``) is
-compiled with ``g++ -O3 -shared -fPIC`` into the port's kernel directory
+The port's own copies of the H.264 CAVLC slice coder (``cavlc.cpp``) and of
+the JPEG 4:2:0 scan coder (``entropy.cpp``) are each compiled with
+``g++ -O3 -shared -fPIC`` into the port's kernel directory
 (``build/torch_kernels/``, see ``_build.kernel_dir``), named by a hash of
 the source and flags, and loaded with ctypes. Nothing is built or loaded at
-import time, and a failed build raises: the encoder needs the coder for
-IDR pictures and overflowed stripes, and never runs without it.
+import time, and a failed build raises: the encoders never run on without
+their coder (there is no quiet switch to a Python coder).
 """
 
 from __future__ import annotations
@@ -49,7 +50,9 @@ def _build(stem: str) -> ctypes.CDLL:
 
 
 _u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_i16p = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,3 +73,22 @@ def cavlc_lib() -> ctypes.CDLL:
     """The compiled H.264 CAVLC slice coder (raises if it cannot be built)."""
     with _lock:
         return _cavlc_lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _entropy_lib() -> ctypes.CDLL:
+    lib = _build("entropy")
+    fn = lib.jpeg_encode_scan_420
+    fn.argtypes = [
+        _i16p, _i16p, _i16p, ctypes.c_int, ctypes.c_int,
+        _u32p, _u8p, _u32p, _u8p, _u32p, _u8p, _u32p, _u8p,
+        _u8p, ctypes.c_int64,
+    ]
+    fn.restype = ctypes.c_int64
+    return lib
+
+
+def entropy_lib() -> ctypes.CDLL:
+    """The compiled JPEG 4:2:0 scan coder (raises if it cannot be built)."""
+    with _lock:
+        return _entropy_lib()

@@ -5,9 +5,9 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What this slice keeps:
 * the ``ws_handler`` handshake — ``SETTINGS,{json}`` in; ``MODE
   websockets`` and the ``server_settings`` JSON out;
 * starting a display on ``SETTINGS`` and running its capture loop: source
-  frames → the pipelined encoder's ``try_submit``/``poll`` → 0x03 JPEG
-  stripes, or 0x04 H.264 stripes for ``x264enc-striped``, fanned out to
-  the display's viewers;
+  frames → the encoder's ``try_submit``/``poll`` → 0x03 JPEG stripes, 0x04
+  H.264 stripes for ``x264enc-striped`` or 0x00 full frames for
+  ``x264enc``, fanned out to the display's viewers;
 * ``CLIENT_FRAME_ACK`` and ``_f`` into the display's
   :class:`~.backpressure.BackpressureState`, re-evaluated every
   ``CHECK_INTERVAL_S``; ``START_VIDEO``/``STOP_VIDEO``;
@@ -15,10 +15,10 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What this slice keeps:
 
 Uploads, input, resize/reconfigure, the mesh, health/stats, supervisors,
 the degradation ladder and the flight recorder are not ported yet. There
-is no fallback either: an encoder profile this slice does not serve raises,
-and a capture-loop error (a frame lost to the encoder included) ends the
-server (:meth:`run_server` raises it) rather than leaving a display that
-streams nothing.
+is no fallback either: an unknown encoder profile raises, and a
+capture-loop error (a frame lost to the encoder included) ends the server
+(:meth:`run_server` raises it) rather than leaving a display that streams
+nothing.
 
 Concurrency model (same invariant as the JAX server): one asyncio loop
 owns all mutable state; the encoder is driven with non-blocking submits and
@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Set
 
 from ..protocol.wire import (
     FrameId,
+    pack_full_frame,
     pack_h264_stripe,
     pack_jpeg_stripe,
     parse_text_message,
@@ -81,34 +82,44 @@ def _ws_broadcast(targets, message) -> None:
 def default_encoder_factory(width: int, height: int, settings: Settings,
                             overrides: Optional[Dict[str, Any]] = None,
                             device=None):
-    """The served encoder for one display, behind the async driver:
-    ``jpeg`` is the pipelined JPEG-stripe encoder, ``x264enc-striped`` the
-    pipelined striped H.264 encoder (one frame per dispatch, device CAVLC).
-    The full-frame ``x264enc`` profile is not ported yet and raises;
-    nothing silently serves another profile in its place."""
+    """The served encoder for one display. ``jpeg`` is the JPEG-stripe
+    encoder; ``x264enc-striped`` and ``x264enc`` the H.264 encoder, striped
+    or as one full-frame stripe shipped as 0x00 packets (the
+    ``wire_fullframe`` flag).
+
+    The ``tpu_entropy`` override picks the rung: the device rung (the
+    default; for H.264 ``None`` reads ``SELKIES_TPU_H264_ENTROPY``) is the
+    pipelined encoder behind the async driver, the ``host`` rung the
+    synchronous encoder behind :class:`ThreadedEncoderAdapter`."""
     from ..encoder.async_driver import AsyncEncodeDriver
-    from ..encoder.pipeline import PipelinedH264Encoder, PipelinedJpegEncoder
+    from ..encoder.pipeline import (PipelinedH264Encoder,
+                                    PipelinedJpegEncoder,
+                                    ThreadedEncoderAdapter)
 
     ov = overrides or {}
     profile = str(ov.get("encoder", settings.encoder))
-    if profile == "x264enc":
-        raise NotImplementedError("the x264enc profile is not ported yet")
-    if profile == "x264enc-striped":
+    entropy = ov.get("tpu_entropy")
+    if profile in ("x264enc", "x264enc-striped"):
         from ..encoder.h264 import H264StripeEncoder
 
         if str(settings.watermark_path):
             logger.warning("watermark is implemented in the JPEG profile "
-                           "only; x264enc-striped ignores watermark_path")
+                           "only; the H.264 profiles ignore watermark_path")
+        fullframe = profile == "x264enc"
         base = H264StripeEncoder(
             width - width % 2, height - height % 2,
             stripe_height=int(settings.tpu_stripe_height),
             qp=int(ov.get("h264_crf", settings.h264_crf.default)),
             paint_over_qp=int(ov.get("h264_paintover_crf",
                                      settings.h264_paintover_crf.default)),
-            device=device,
+            fullframe=fullframe, entropy=entropy, device=device,
         )
-        return AsyncEncodeDriver(PipelinedH264Encoder(base, depth=4,
-                                                      fetch_group=2))
+        if base.entropy != "device":
+            return ThreadedEncoderAdapter(base, depth=3,
+                                          wire_fullframe=fullframe)
+        return AsyncEncodeDriver(
+            PipelinedH264Encoder(base, depth=4, fetch_group=2),
+            wire_fullframe=fullframe)
     if profile != "jpeg":
         raise ValueError(f"unknown encoder profile {profile!r}")
     from ..encoder.jpeg import JpegStripeEncoder
@@ -121,10 +132,13 @@ def default_encoder_factory(width: int, height: int, settings: Settings,
                                  settings.paint_over_jpeg_quality.default),
         use_paint_over_quality=ov.get("use_paint_over_quality",
                                       settings.use_paint_over_quality.value),
+        entropy=entropy or "device",
         watermark_path=str(settings.watermark_path),
         watermark_location=int(settings.watermark_location),
         device=device,
     )
+    if base.entropy != "device":
+        return ThreadedEncoderAdapter(base, depth=3)
     return AsyncEncodeDriver(PipelinedJpegEncoder(base, depth=4, fetch_group=2))
 
 
@@ -135,10 +149,15 @@ def default_source_factory(width: int, height: int, fps: float):
     return SyntheticSource(width, height, fps, pattern="desktop")
 
 
-def _pack_stripe(frame_id: int, s) -> bytes:
+def _pack_stripe(frame_id: int, s, encoder) -> bytes:
     """Wire-pack one encoded stripe by profile: JPEG stripes -> 0x03,
-    striped H.264 -> 0x04 (the client's per-stripe decoders)."""
+    striped H.264 -> 0x04 (the client's per-stripe decoders), full-frame
+    H.264 -> 0x00. The full-frame routing is the encoder's
+    ``wire_fullframe`` flag: a short display has one stripe in striped mode
+    too, and still ships 0x04."""
     if hasattr(s, "annexb"):
+        if getattr(encoder, "wire_fullframe", False):
+            return pack_full_frame(frame_id, s.annexb, s.is_key)
         return pack_h264_stripe(frame_id, s.y_start, s.width, s.height,
                                 s.annexb, s.is_key)
     return pack_jpeg_stripe(frame_id, s.y_start, s.jpeg)
@@ -426,7 +445,7 @@ class DataStreamingServer:
                     if not stripes:
                         continue        # damage gating emitted nothing
                     frame_id = FrameId.next(frame_id)
-                    self._emit_frame(st, frame_id, stripes)
+                    self._emit_frame(st, frame_id, stripes, encoder)
                     st.bp.on_frame_sent(frame_id)
                     st.frames_sent += 1
                 next_tick += interval
@@ -454,12 +473,13 @@ class DataStreamingServer:
         if self._stop_event is not None:
             self._stop_event.set()
 
-    def _emit_frame(self, st: DisplayState, frame_id: int, stripes) -> None:
+    def _emit_frame(self, st: DisplayState, frame_id: int, stripes,
+                    encoder) -> None:
         viewers = self._viewers_of(st.display_id)
         if not viewers:
             return
         for s in stripes:
-            _ws_broadcast(viewers, _pack_stripe(frame_id, s))
+            _ws_broadcast(viewers, _pack_stripe(frame_id, s, encoder))
 
     async def _backpressure_loop(self, st: DisplayState) -> None:
         while True:

@@ -33,7 +33,8 @@ def run(settings: Settings, device=None) -> int:
 def warm_default_geometry(settings: Settings, device=None,
                           width: int = 1920, height: int = 1080) -> None:
     """Build the configured profile's kernels and encode two frames at the
-    default geometry (blocking): for ``x264enc-striped`` the first is an
+    default geometry (blocking), through the factory's encoder for the
+    configured profile and rung: for the H.264 profiles the first is an
     IDR (the host coder's build) and the second a P frame (the motion
     kernel's build). Raises the encoder's error if any of it fails."""
     enc = default_encoder_factory(width, height, settings, device=device)

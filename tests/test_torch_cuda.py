@@ -19,7 +19,9 @@ import torch
 from selkies_tpu_torch._device import encoder_stream
 from selkies_tpu_torch.capture.synthetic import SyntheticSource
 from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+from selkies_tpu_torch.encoder.h264_device import _pack_sparse
 from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder, _recip
+from selkies_tpu_torch.encoder.pipeline import ThreadedEncoderAdapter
 from selkies_tpu_torch.ops.dct_quant import (dct8_quant_zigzag,
                                              dct8_quant_zigzag_plain)
 from selkies_tpu_torch.ops.me_mc import me_mc_stripes
@@ -257,6 +259,96 @@ def test_encoder_churn_keeps_reserved_memory_flat(cuda_device):
             for f in frames:
                 enc.encode_frame(f)
             del enc
+            gc.collect()
+            torch.cuda.synchronize()
+            readings.append(torch.cuda.memory_reserved())
+        assert readings[-1] - readings[1] <= 64 << 20, readings
+
+
+@pytest.mark.parametrize("kind", ["scroll", "noise", "flat", "lattice"])
+def test_me_mc_kernel_full_frame_stripe(cuda_device, kind):
+    """The x264enc profile's shape: one stripe over a whole 1280x720 frame
+    (720 rows, not a multiple of 64; the window rows clamp to the frame),
+    every value exactly equal to the plain version."""
+    cur, ref = _me_pair(kind, h=720, w=1280)
+    mv = _me_check(cuda_device, cur, ref, 720, 12)
+    if kind == "flat":
+        assert not mv.any()
+
+
+def test_pack_sparse_on_card_equals_cpu(cuda_device):
+    """The host tier's block-sparse pack (tensor code, a stable sort of
+    an integer key among it) gives the CPU's bytes on the card: stripes
+    sparse, dense past the cell cap, with a level past the int8 range and
+    outside the update; and one stripe whose u16 count wraps."""
+    rng = np.random.default_rng(12)
+    flat = np.zeros((4, 393600), np.int16)
+    for s, density in ((0, 0.001), (1, 0.5), (2, 0.002), (3, 0.01)):
+        mask = rng.random(flat.shape[1]) < density
+        flat[s, mask] = rng.integers(-60, 61, mask.sum())
+    flat[2, 1234] = 500
+    big = np.zeros((1, 70_000 * 16), np.int16)
+    big[0, ::16] = -1
+    cases = [(flat, [True, True, False, True], [True, True, True, False]),
+             (big, [True], [True])]
+    for levels, damage, update in cases:
+        args = [torch.from_numpy(levels), torch.tensor(damage),
+                torch.tensor(update)]
+        want = _pack_sparse(*args, cap_frac=8)
+        got = _pack_sparse(*(a.to(cuda_device) for a in args), cap_frac=8)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_fullframe_and_host_entropy_on_card_equal_cpu(cuda_device):
+    """x264enc (one stripe of 368 coded rows) with device and with host
+    entropy, and x264enc-striped with host entropy, at 640x360: IDR,
+    scrolled P frames, static frames to paint-over, a noise frame at QP 18
+    (past the host tier's cell cap): the card's Annex-B equals the
+    CPU's."""
+    src = SyntheticSource(640, 360, pattern="scroll", seed=9)
+    frames = [src.next_frame() for _ in range(3)]
+    frames += [frames[-1]] * 3
+    frames.append(SyntheticSource(640, 360, pattern="noise",
+                                  seed=2).next_frame())
+    for kw in (dict(fullframe=True, entropy="device"),
+               dict(fullframe=True, entropy="host"),
+               dict(stripe_height=64, entropy="host")):
+        cpu = H264StripeEncoder(640, 360, device="cpu", qp=18,
+                                paint_over_trigger_frames=2, **kw)
+        gpu = H264StripeEncoder(640, 360, device=cuda_device, qp=18,
+                                paint_over_trigger_frames=2, **kw)
+        for f in frames:
+            a, b = cpu.encode_frame(f), gpu.encode_frame(f)
+            assert [(s.y_start, s.is_key, s.annexb) for s in a] == \
+                [(s.y_start, s.is_key, s.annexb) for s in b], kw
+        assert gpu.entropy_errors_total == 0
+        assert gpu.host_coded_stripes_total == cpu.host_coded_stripes_total
+
+
+def test_threaded_adapter_stays_on_the_encoder_stream(cuda_device):
+    """The host rungs behind ThreadedEncoderAdapter: its worker thread
+    runs the encoder inside the encoder's stream context, so its
+    allocations land on the card's one encoder stream and a closed
+    adapter's blocks are reused. Four build/encode/close cycles per codec
+    at 1280x720: the reserved memory after the 4th is at most 64 MB above
+    the 2nd's."""
+    src = SyntheticSource(1280, 720, pattern="scroll", seed=10)
+    frames = [src.next_frame() for _ in range(3)]
+    for make in (lambda: JpegStripeEncoder(1280, 720, entropy="host",
+                                           device=cuda_device),
+                 lambda: H264StripeEncoder(1280, 720, entropy="host",
+                                           device=cuda_device)):
+        readings = []
+        for _ in range(4):
+            ad = ThreadedEncoderAdapter(make(), depth=3)
+            assert ad.base.stream is encoder_stream(cuda_device)
+            for f in frames:
+                ad.submit(f)
+            out = ad.flush(120.0)
+            assert len(out) == 3 and ad.stats()["encode_errors"] == 0
+            ad.close()
+            assert ad.join(30.0)
+            del ad, out
             gc.collect()
             torch.cuda.synchronize()
             readings.append(torch.cuda.memory_reserved())

@@ -57,11 +57,19 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.ops.me_mc\n"
         "import selkies_tpu_torch.native\n"
         "import selkies_tpu_torch.encoder.h264\n"
+        "import selkies_tpu_torch.encoder.h264_device\n"
         "import selkies_tpu_torch.encoder.device_cavlc\n"
         "from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder\n"
+        "from selkies_tpu_torch.encoder.pipeline import ThreadedEncoderAdapter\n"
         "import numpy as np\n"
         "enc = JpegStripeEncoder(32, 16, stripe_height=16, device='cpu')\n"
         "assert len(enc.encode_frame(np.zeros((16, 32, 3), np.uint8))) == 1\n"
+        "ad = ThreadedEncoderAdapter(JpegStripeEncoder(\n"
+        "    32, 16, stripe_height=16, entropy='host', device='cpu'))\n"
+        "ad.submit(np.zeros((16, 32, 3), np.uint8))\n"
+        "assert len(ad.flush()[0][1]) == 1\n"
+        "ad.close()\n"
+        "assert ad.join(10.0)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'selkies_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('isolated')\n"
@@ -74,9 +82,11 @@ def test_port_imports_with_jax_and_jax_package_blocked():
 
 def test_h264_path_opens_and_loads_nothing_of_the_jax_package():
     """An audit hook records every file opened and every library loaded
-    while the port encodes an IDR and a P frame of x264enc-striped (the
-    host coder is built and loaded then): none lies under selkies_tpu/,
-    whose prebuilt _libselkies_cavlc.so the port must not use."""
+    while the port encodes an IDR and a P frame of x264enc-striped, a
+    full-frame P frame with host entropy and a frame of the JPEG host rung
+    (the two host coders are built and loaded then): none lies under
+    selkies_tpu/, whose prebuilt _libselkies_cavlc.so and
+    _libselkies_entropy.so the port must not use."""
     code = (
         "import os, sys\n"
         "seen = []\n"
@@ -91,10 +101,19 @@ def test_h264_path_opens_and_loads_nothing_of_the_jax_package():
         "f = np.random.default_rng(0).integers(0, 256, (32, 64, 3), np.uint8)\n"
         "assert enc.encode_frame(f)[0].is_key\n"
         "assert not enc.encode_frame(np.roll(f, 2, 0))[0].is_key\n"
+        "enc = H264StripeEncoder(64, 32, fullframe=True, entropy='host',\n"
+        "                        device='cpu')\n"
+        "enc.encode_frame(f)\n"
+        "assert len(enc.encode_frame(np.roll(f, 2, 1))) == 1\n"
+        "from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder\n"
+        "jenc = JpegStripeEncoder(64, 32, stripe_height=16, entropy='host',\n"
+        "                         device='cpu')\n"
+        "assert len(jenc.encode_frame(f)) == 2\n"
         "jax_pkg = os.path.realpath('selkies_tpu') + os.sep\n"
         "bad = [p for p in seen if os.path.realpath(p).startswith(jax_pkg)]\n"
         "assert not bad, bad\n"
         "assert any('libcavlc_host_' in p for p in seen), seen\n"
+        "assert any('libentropy_host_' in p for p in seen), seen\n"
         "print('isolated', len(seen))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
@@ -149,3 +168,4 @@ def test_kernel_build_is_lazy_and_sources_ship():
     assert (PORT / "csrc" / "dct_quant.cu").is_file()
     assert (PORT / "csrc" / "me_mc.cu").is_file()
     assert (PORT / "native" / "cavlc.cpp").is_file()
+    assert (PORT / "native" / "entropy.cpp").is_file()

@@ -3,8 +3,9 @@
 An in-process client (async send/close, async iteration, send_nowait)
 stands in for the browser; no websockets package is needed. The port's
 first-frame 0x03 stripes must equal the JAX server's for the same
-synthetic source, byte for byte, and its first 0x04 frame of the
-x264enc-striped profile the JAX encoder's."""
+synthetic source, byte for byte, its first 0x04 frame of the
+x264enc-striped profile the JAX encoder's, and its first 0x00 frame of the
+x264enc profile the JAX encoder's full-frame packet."""
 
 import asyncio
 import json
@@ -188,31 +189,49 @@ def test_stop_and_start_video():
     asyncio.run(run())
 
 
-def test_h264_profiles_are_not_served():
-    """x264enc (full frame) is not ported and raises; x264enc-striped is
-    served by the pipelined H.264 encoder behind the async driver."""
+#: every (encoder, tpu_entropy) pair the JAX factory builds, with the
+#: adapter class the port's factory must put in front of it
+FACTORY_PAIRS = [
+    ("jpeg", None, "AsyncEncodeDriver"),
+    ("jpeg", "host", "ThreadedEncoderAdapter"),
+    ("x264enc-striped", None, "AsyncEncodeDriver"),
+    ("x264enc-striped", "host", "ThreadedEncoderAdapter"),
+    ("x264enc", None, "AsyncEncodeDriver"),
+    ("x264enc", "host", "ThreadedEncoderAdapter"),
+]
+
+
+@pytest.mark.parametrize("profile,entropy,adapter", FACTORY_PAIRS)
+def test_h264_profiles_are_not_served(profile, entropy, adapter):
+    """Every (encoder, tpu_entropy) pair is served now, none raises: the
+    factory builds it behind the right adapter, which encodes one 96x80
+    frame (two 64-row stripes, or one full-frame stripe) and closes. The
+    x264enc profile's adapter carries wire_fullframe, the others not."""
     s = Settings(argv=[], env=dict(ENV))
-    with pytest.raises(NotImplementedError):
-        tds.default_encoder_factory(64, 64, s, {"encoder": "x264enc"},
-                                    device="cpu")
-    enc = tds.default_encoder_factory(64, 64, s,
-                                      {"encoder": "x264enc-striped"},
-                                      device="cpu")
+    ov = {"encoder": profile}
+    if entropy is not None:
+        ov["tpu_entropy"] = entropy
+    enc = tds.default_encoder_factory(96, 80, s, ov, device="cpu")
     try:
-        enc.submit(np.zeros((64, 64, 3), np.uint8))
+        assert type(enc).__name__ == adapter
+        assert getattr(enc, "wire_fullframe", False) == (profile == "x264enc")
+        base = enc.base if adapter == "ThreadedEncoderAdapter" \
+            else enc.pipe.base
+        assert base.entropy == (entropy or "device")
+        assert enc.submit(np.zeros((80, 96, 3), np.uint8)) is not None
         out = enc.flush()
-        assert len(out) == 1 and len(out[0][1]) == 1
-        assert out[0][1][0].is_key and out[0][1][0].annexb[:4] == b"\0\0\0\1"
+        assert len(out) == 1
+        stripes = out[0][1]
+        assert len(stripes) == (1 if profile == "x264enc" else 2)
+        if profile == "jpeg":
+            assert all(x.jpeg[:2] == b"\xff\xd8" for x in stripes)
+        else:
+            assert all(x.is_key and x.annexb[:4] == b"\0\0\0\1"
+                       for x in stripes)
+        assert enc.stats()["encode_errors"] == 0
     finally:
         enc.close()
-        enc.join(10.0)
-    enc = tds.default_encoder_factory(64, 64, s, device="cpu")
-    try:
-        enc.submit(np.zeros((64, 64, 3), np.uint8))
-        out = enc.flush()
-        assert len(out) == 1 and len(out[0][1]) == 1
-    finally:
-        enc.close()
+        assert enc.join(10.0)
 
 
 H264_ENV = dict(ENV, SELKIES_ENCODER="x264enc-striped")
@@ -314,3 +333,98 @@ def test_failed_warm_up_ends_the_entry_point(monkeypatch):
     with pytest.raises(RuntimeError, match="warm-up failed"):
         asyncio.run(tmain._amain(Settings(argv=[], env=dict(ENV)),
                                  device="cpu"))
+
+
+FULL_ENV = dict(ENV, SELKIES_ENCODER="x264enc")
+
+
+def _binary_frames(ws):
+    """{frame_id: [raw message, ...]} of the binary frames received."""
+    frames = {}
+    for m in ws.binary():
+        frames.setdefault(unpack_binary(m).frame_id, []).append(bytes(m))
+    return frames
+
+
+async def _serve_h264(env, settings_msg, n_frames):
+    server = tds.DataStreamingServer(Settings(argv=[], env=dict(env)),
+                                     source_factory=_source, device="cpu",
+                                     host="127.0.0.1")
+    ws = Client()
+    task = asyncio.create_task(server.ws_handler(ws))
+    assert await _wait(lambda: len(ws.sent) >= 2)
+    ws.feed("SETTINGS," + json.dumps(settings_msg))
+    assert await _wait(lambda: len(_binary_frames(ws)) >= n_frames)
+    frames = _binary_frames(ws)
+    for fid in sorted(frames):
+        ws.feed(f"CLIENT_FRAME_ACK {fid}")
+    st = server.display_clients[settings_msg["displayId"]]
+    assert await _wait(lambda: st.bp.acknowledged_frame_id >= n_frames)
+    await _close(server, ws, task)
+    return frames
+
+
+def test_x264enc_served_as_0x00_identical_to_jax_encoder():
+    """x264enc through ws_handler: one 0x00 full-frame packet per frame;
+    the first equals the JAX package's pack_full_frame of its full-frame
+    encoder's output on the same source frame, later ones are P frames."""
+    from selkies_tpu.encoder.h264 import H264StripeEncoder as JaxEncoder
+    from selkies_tpu.protocol import pack_full_frame as jax_pack
+
+    first = _source(W, H, 30).next_frame()
+    s = Settings(argv=[], env=dict(FULL_ENV))
+    jenc = JaxEncoder(W, H, fullframe=True, entropy="device",
+                      qp=s.h264_crf.default,
+                      paint_over_qp=s.h264_paintover_crf.default)
+    want = [jax_pack(1, st.annexb, st.is_key)
+            for st in jenc.encode_frame(first)]
+    frames = asyncio.run(_serve_h264(FULL_ENV, SETTINGS, 3))
+    assert len(want) == 1 and frames[1] == want
+    assert frames[1][0][:2] == b"\x00\x01"             # 0x00, keyframe
+    for fid in sorted(frames)[1:]:
+        (m,) = frames[fid]
+        f = unpack_binary(m)
+        assert m[:2] == b"\x00\x00" and f.payload[:4] == b"\0\0\0\1"
+
+
+def test_one_stripe_display_under_x264enc_striped_ships_0x04():
+    """A display no taller than one stripe has one stripe in striped mode
+    too; the profile, not the stripe count, picks the wire type."""
+    short = dict(SETTINGS, initialClientHeight=64)
+    frames = asyncio.run(_serve_h264(H264_ENV, short, 2))
+    for fid in sorted(frames):
+        (m,) = frames[fid]
+        f = unpack_binary(m)
+        assert m[0] == 0x04 and f.y_start == 0 and f.height == 64
+
+
+@pytest.mark.parametrize("profile,entropy,adapter", [
+    ("x264enc", None, "AsyncEncodeDriver"),
+    ("x264enc", "host", "ThreadedEncoderAdapter"),
+    ("jpeg", None, "AsyncEncodeDriver"),
+])
+def test_warm_up_encodes_the_configured_profile(monkeypatch, profile, entropy,
+                                                adapter):
+    """The entry point's warm-up builds the configured profile and rung
+    through the factory (SELKIES_TPU_H264_ENTROPY picks the H.264 rung)
+    and encodes its two frames, an IDR and a P frame for H.264, without
+    an error; its encoder's thread is joined."""
+    from selkies_tpu_torch.server import main as tmain
+
+    if entropy is not None:
+        monkeypatch.setenv("SELKIES_TPU_H264_ENTROPY", entropy)
+    built = []
+
+    def recording_factory(*args, **kwargs):
+        enc = tds.default_encoder_factory(*args, **kwargs)
+        built.append(enc)
+        return enc
+
+    monkeypatch.setattr(tmain, "default_encoder_factory", recording_factory)
+    s = Settings(argv=[], env=dict(ENV, SELKIES_ENCODER=profile))
+    tmain.warm_default_geometry(s, device="cpu", width=96, height=80)
+    (enc,) = built
+    assert type(enc).__name__ == adapter
+    assert getattr(enc, "wire_fullframe", False) == (profile == "x264enc")
+    assert enc.stats()["frames"] == 2 and enc.stats()["encode_errors"] == 0
+    assert enc.join(0.0)
