@@ -13,8 +13,14 @@ the striped and the full-frame shape), and drives every served profile at
 1920x1080: the JPEG-stripe profile (pipelined encoder behind the async
 driver, then the data server's ws_handler with an in-process client), the
 x264enc-striped and the full-frame x264enc H.264 profiles (the same two
-ways), and the host-entropy rung of both codecs (behind the threaded
-adapter). Launch counters, set to 0 before each path and read after it,
+ways), the host-entropy rung of both codecs (behind the threaded
+adapter), batched H.264 dispatch (4 and BATCH frames per step through
+``submit_batch``, frames made on the card by DeviceScrollSource, against
+one frame per step, both profiles, with each run's memory peak, and the
+host tier; the data server with SELKIES_TPU_ASYNC_BATCH=4), and the JPEG
+pipeline fed with frames
+made on the card against the same frames from the host. Launch counters,
+set to 0 before each path and read after it,
 show that the path ran its kernel. Each timed device-rung encoder run is
 made twice: once keeping nothing (its rates are the ones reported) and
 once keeping what the check after its window needs (its rates are
@@ -35,7 +41,11 @@ reported beside them). The output is checked by the repo's own means:
   fetch prefix (device tier) and whose nonzero cells pass the cap and wrap
   the u16 head count (host tier), equals the native coder on its levels;
 * the host rungs: every frame's stripes equal the device rung's,
-  encoded synchronously on the card from the same frames.
+  encoded synchronously on the card from the same frames;
+* batched dispatch: every frame's stripes equal those of one frame per
+  dispatch over the same frames on the card (the host tier's too);
+  JPEG with frames made on the card: every stripe equals the host-frame
+  runs'.
 
 Encoders share one CUDA stream per card, so the memory of a closed
 encoder goes back to the allocator's pool: the encoder_churn phase builds,
@@ -44,7 +54,8 @@ the reserved memory stops growing.
 
 It prints one JSON object per line (setup, kernels, encoder, h264_encoder,
 h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
-encoder_churn, h264_cross, profile, profile_h264, profile_fullframe),
+h264_batch, server_h264_batch, jpeg_device_frames, encoder_churn,
+h264_cross, profile, profile_h264, profile_fullframe),
 the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits
@@ -55,6 +66,7 @@ needs neither websockets nor PIL.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import subprocess
@@ -119,13 +131,14 @@ def cuda_time_ms(fn, reps: int, flush=None) -> float:
     return total / reps
 
 
-def launch_ms(fn, reps: int):
-    """Device time of each launch ``fn()`` makes, in issue order (a list:
-    torch.profiler's device intervals, the i-th of every run averaged over
-    ``reps`` back-to-back runs, warm L2 as on the main path, where the
-    inputs were written just before; each run must make the same
-    launches). Unlike CUDA events around the calls it excludes the gaps in
-    which the device waits for the host to enqueue the next launch."""
+#: profiler windows taken again because CUPTI lost device records, and
+#: the timings that fell back to CUDA events (reported in the kernels line)
+PROFILER = {"retries": 0, "fell_back_to_events": []}
+
+
+def _device_events(fn, reps: int):
+    """The device events torch.profiler records over ``reps`` back-to-back
+    runs of ``fn()`` (after one unprofiled run), in issue order."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -135,20 +148,43 @@ def launch_ms(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev = sorted((e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    if not dev or len(dev) % reps:
-        return None
-    per = len(dev) // reps
-    return [sum(e.time_range.elapsed_us() for e in dev[i::per]) / 1e3 / reps
-            for i in range(per)]
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
 
 
-def device_ms(fn, reps: int):
-    """Device time of ``fn()`` per run: its launches' times summed."""
+def launch_ms(fn, reps: int, tries: int = 5):
+    """Device time of each launch ``fn()`` makes, in issue order (a list:
+    torch.profiler's device intervals, the i-th of every run averaged over
+    ``reps`` back-to-back runs, warm L2 as on the main path, where the
+    inputs were written just before; each run must make the same
+    launches). Unlike CUDA events around the calls it excludes the gaps in
+    which the device waits for the host to enqueue the next launch.
+
+    CUPTI now and then loses some of a window's device records, so a
+    window is kept only when it holds ``reps`` times the events of a
+    one-run window taken just before it; else both are taken again, at
+    most ``tries`` times, and None is returned."""
+    for attempt in range(tries):
+        per = len(_device_events(fn, 1))
+        dev = _device_events(fn, reps)
+        if per and len(dev) == per * reps:
+            PROFILER["retries"] += attempt
+            return [sum(e.time_range.elapsed_us() for e in dev[i::per])
+                    / 1e3 / reps for i in range(per)]
+    PROFILER["retries"] += tries
+    return None
+
+
+def device_ms(fn, reps: int, what: str):
+    """Device time of ``fn()`` per run and how it was taken: its launches'
+    times summed (torch.profiler); where the profiler lost records in
+    every try, CUDA events around each run (launch gaps included)."""
     per = launch_ms(fn, reps)
-    return None if per is None else sum(per)
+    if per is not None:
+        return sum(per), "torch.profiler"
+    PROFILER["fell_back_to_events"].append(what)
+    return cuda_time_ms(fn, reps), "CUDA events"
 
 
 #: what each _settle call found and freed, by the phase it ran before
@@ -280,10 +316,6 @@ def phase_kernel_check():
     def kernel():
         dct8_quant_zigzag(planes)
 
-    def kernel_per_plane():
-        for p in planes:
-            dct8_quant_zigzag([p])
-
     def plain():
         for p, r, i in planes:
             dct8_quant_zigzag_plain(p, r, i)
@@ -295,12 +327,13 @@ def phase_kernel_check():
             tdct.block_dct2_einsum(b)
 
     flush = flush_buf.zero_
-    kernel_ms = device_ms(kernel, 100)
-    per_plane_ms = launch_ms(kernel_per_plane, 100)
-    plain_ms = device_ms(plain, 10)
-    library_ms = device_ms(library, 50)
-    check(None not in (kernel_ms, per_plane_ms, plain_ms, library_ms),
-          "profiler recorded no device time")
+    kernel_ms, kernel_how = device_ms(kernel, 100, "dct8_quant_zigzag")
+    per_plane = [device_ms(lambda p=p: dct8_quant_zigzag([p]), 100,
+                           f"dct8_quant_zigzag/plane{i}")
+                 for i, p in enumerate(planes)]
+    plain_ms, plain_how = device_ms(plain, 10, "dct8_quant_zigzag/plain")
+    library_ms, library_how = device_ms(library, 50,
+                                        "dct8_quant_zigzag/library")
     # CUDA events around the call, L2 overwritten before each: the
     # host-visible cost, launch gap included
     events_cold_ms = cuda_time_ms(kernel, 50, flush)
@@ -328,9 +361,12 @@ def phase_kernel_check():
         "equal_share": equal_share,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
-        "ms_timing": "torch.profiler device time, warm L2, 100 reps",
+        "ms_timing": f"{kernel_how} device time, warm L2, 100 reps",
+        "plain_timing": plain_how,
+        "library_timing": library_how,
         "events_ms_cold_l2": events_cold_ms,
-        "per_plane_launch_ms": per_plane_ms,
+        "per_plane_launch_ms": [ms for ms, _ in per_plane],
+        "per_plane_timing": [how for _, how in per_plane],
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -605,6 +641,10 @@ def phase_profile(make_pipeline, kernel_key: str, profile_name: str,
         "device_ops_per_frame": len(dev) / n_frames,
         "kernel": kernel_key,
         "kernel_ms_per_frame": kernel_us / 1e3 / n_frames,
+        # 1 launch per frame: below 1, CUPTI lost records in this window
+        "kernel_events_per_frame": sum(
+            v[0] for k, v in by_name.items()
+            if any(n in k for n in kernel_key.split("|"))) / n_frames,
         "kernel_share_of_device_time": kernel_us / max(1.0, total_us),
         "copies_and_memsets_ms_per_frame": copy_us / 1e3 / n_frames,
         "htod_ms_per_frame": htod_us / 1e3 / n_frames,
@@ -640,6 +680,21 @@ def phase_small_reference():
     return {"small_frames": len(frames), "small_stripes_identical": same}
 
 
+@contextlib.contextmanager
+def _async_batch(batch: int):
+    """SELKIES_TPU_ASYNC_BATCH set to ``batch`` for the factory's reads
+    inside the block, restored after it."""
+    prev = os.environ.get("SELKIES_TPU_ASYNC_BATCH")
+    os.environ["SELKIES_TPU_ASYNC_BATCH"] = str(batch)
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["SELKIES_TPU_ASYNC_BATCH"]
+        else:
+            os.environ["SELKIES_TPU_ASYNC_BATCH"] = prev
+
+
 #: the server phase's name and wire type by profile
 SERVER_PHASES = {"jpeg": ("server", 0x03),
                  "x264enc-striped": ("server_h264", 0x04),
@@ -647,11 +702,12 @@ SERVER_PHASES = {"jpeg": ("server", 0x03),
 
 
 def phase_server(profile: str = "jpeg", min_frames: int = 30,
-                 timeout_s: float = 180.0):
+                 timeout_s: float = 180.0, batch: int = 1):
     """An in-process client through the port's ws_handler at 1920x1080:
     SETTINGS handshake, >= min_frames frames (0x03 JPEG stripes, 0x04 H.264
     stripes for x264enc-striped, one 0x00 full-frame packet per frame for
-    x264enc), each ACKed."""
+    x264enc), each ACKed. ``batch`` > 1 serves with
+    SELKIES_TPU_ASYNC_BATCH=batch (phase ``<name>_batch``)."""
     from selkies_tpu_torch.protocol.wire import unpack_binary
     from selkies_tpu_torch.server.data_server import DataStreamingServer
     from selkies_tpu_torch.settings import Settings
@@ -684,6 +740,8 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
             return m
 
     name, wire_type = SERVER_PHASES[profile]
+    if batch > 1:
+        name += "_batch"
 
     async def run():
         settings = Settings(argv=[], env={"SELKIES_PORT": "0",
@@ -740,7 +798,9 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
         await server.stop()
         return result
 
-    res = asyncio.run(run())
+    with _async_batch(batch):
+        res = asyncio.run(run())
+    res["async_batch"] = batch
     check(res["mode"] == "MODE websockets", "handshake")
     check(res["frames_received"] >= min_frames,
           f"server sent {res['frames_received']} frames < {min_frames}")
@@ -749,6 +809,8 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
     check(es.get("encode_errors", 0) == 0
           and es.get("entropy_errors", 0) == 0,
           f"server encoder errors: {es}")
+    check(batch == 1 or es.get("batch") == batch,
+          f"server encoder not batched: {es}")
     return res
 
 
@@ -829,9 +891,10 @@ def _me_at_shape(enc, int_ops_per_s: float) -> dict:
     check(moved["lattice"] > 0, f"{shape}: lattice pair found no motion")
 
     args = _h264_planes(*pairs["scroll"], enc)
-    kernel_ms = device_ms(lambda: me_mc_stripes(*args), 50)
-    plain_ms = device_ms(lambda: full_search_mc(*args), 2)
-    check(None not in (kernel_ms, plain_ms), "profiler recorded no device time")
+    kernel_ms, kernel_how = device_ms(lambda: me_mc_stripes(*args), 50,
+                                      f"me_mc_stripes{shape}")
+    plain_ms, plain_how = device_ms(lambda: full_search_mc(*args), 2,
+                                    f"me_mc_stripes{shape}/plain")
     events_ms = cuda_time_ms(lambda: me_mc_stripes(*args), 20)
 
     n_off = (2 * enc.search + 1) ** 2
@@ -854,7 +917,8 @@ def _me_at_shape(enc, int_ops_per_s: float) -> dict:
         "n_diff_by_pair": per_pair,
         "moved_blocks_by_pair": moved,
         "ms": kernel_ms,
-        "ms_timing": "torch.profiler device time, 50 reps, 1080p scroll pair",
+        "ms_timing": f"{kernel_how} device time, 50 reps, 1080p scroll pair",
+        "plain_timing": plain_how,
         "events_ms": events_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -929,17 +993,19 @@ def _per_vabsdiff4() -> dict:
     return {k: round(v / n, 4) for k, v in list(ops.items())[:10]}
 
 
-def _served(profile: str, entropy=None):
+def _served(profile: str, entropy=None, batch: int = 1):
     """The served encoder of ``profile`` at 1080p, as the data server
-    builds it (``entropy="host"``: the host rung): (base encoder, pipeline
-    or None behind a threaded adapter, what the capture loop drives)."""
+    builds it (``entropy="host"``: the host rung; ``batch``: its
+    SELKIES_TPU_ASYNC_BATCH): (base encoder, pipeline or None behind a
+    threaded adapter, what the capture loop drives)."""
     from selkies_tpu_torch.server.data_server import default_encoder_factory
     from selkies_tpu_torch.settings import Settings
 
     settings = Settings(argv=[], env={"SELKIES_PORT": "0",
                                       "SELKIES_ENCODER": profile})
     ov = {"tpu_entropy": entropy} if entropy else None
-    enc = default_encoder_factory(W, H, settings, ov, device=DEVICE)
+    with _async_batch(batch):
+        enc = default_encoder_factory(W, H, settings, ov, device=DEVICE)
     pipe = getattr(enc, "pipe", None)
     return (enc.base if pipe is None else pipe.base), pipe, enc
 
@@ -1202,10 +1268,297 @@ def check_host_rung(profile: str, out: dict, runs: dict) -> None:
         out["patterns"][pattern]["frames_identical_to_device_rung"] = same
 
 
-#: encoder_churn: cycles per profile, frames per cycle, and the most the
+# ---------------------------------------------------------------------------
+# batched H.264 dispatch and frames made on the card
+
+#: frames per batched dispatch (bench.py's BATCH), batches per timed run,
+#: and the batches of the host-tier run
+BATCH = 12
+N_BATCHES = 8
+N_HOST_BATCHES = 3
+#: batches (at BATCH) or frames/BATCH (at 1) in each profiled window
+PROFILE_BATCHES = 2
+
+
+def _batch_pipeline(profile: str, batch: int, entropy: str = "device"):
+    """The pipeline the factory builds for ``profile`` with
+    SELKIES_TPU_ASYNC_BATCH=``batch`` (depth max(4, 3B), fetch groups of
+    2), driven directly as bench.py drives it (``submit_batch``)."""
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+    from selkies_tpu_torch.encoder.pipeline import PipelinedH264Encoder
+
+    geo = dict(fullframe=True) if profile == "x264enc" else \
+        dict(stripe_height=STRIPE)
+    base = H264StripeEncoder(W, H, entropy=entropy, device=DEVICE, **geo)
+    return PipelinedH264Encoder(base, depth=max(4, 3 * batch), fetch_group=2,
+                                batch=batch)
+
+
+def _annexb(stripes):
+    return [(s.y_start, s.is_key, s.annexb) for s in stripes]
+
+
+def _batch_run(profile: str, batch: int, n_batches: int,
+               entropy: str = "device", profiled: bool = False):
+    """1080p DeviceScrollSource frames (seed 2) through the pipeline at
+    ``batch``: two frames one by one (the IDR and the first P frame), one
+    warm batch of BATCH frames, then ``n_batches`` timed batches of BATCH
+    frames (at batch 1 the same frames one by one), every batch
+    harvested as it completes. Returns (every frame's stripes in order,
+    the timed window's numbers); ``profiled`` puts the timed window under
+    torch.profiler and adds the device's share of it. The device memory
+    the run allocated at its peak, over what was allocated before it, is
+    ``peak_allocated_mb``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from selkies_tpu_torch.capture.synthetic import DeviceScrollSource
+
+    alloc0 = _peak_mark()
+    pipe = _batch_pipeline(profile, batch, entropy)
+    src = DeviceScrollSource(W, H, seed=2, device=DEVICE)
+    results = {}
+
+    def feed(n):
+        if batch == 1:
+            for _ in range(n):
+                pipe.submit(src.next_frame())
+                results.update(pipe.poll(flush_partial=False))
+        else:
+            for _ in range(n // batch):
+                pipe.submit_batch(src.next_batch(batch))
+                results.update(pipe.poll(flush_partial=False))
+
+    for _ in range(2):
+        pipe.submit(src.next_frame())
+    results.update(pipe.flush())
+    feed(BATCH)
+    results.update(pipe.flush())
+    pipe._dispatch_ms.clear()
+    d2h0 = pipe.d2h_bytes_total + pipe.base.d2h_refetch_bytes_total
+    ems0 = pipe.base.host_entropy_ms_total
+    n = n_batches * BATCH
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if profiled else None
+    if prof is not None:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        feed(BATCH)
+    results.update(pipe.flush())
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    st = pipe.stats()
+    check(len(results) == 2 + BATCH + n and st["entropy_errors"] == 0,
+          f"{profile}/{entropy} batch {batch}: {len(results)} frames, {st}")
+    out = {"batch": batch, "frames": n, "fps": n / wall,
+           "dispatch_p50_ms": st["dispatch_p50_ms"],
+           "dispatch_p50_ms_per_frame": st["dispatch_p50_ms"] / batch,
+           "d2h_bytes_per_frame":
+               (pipe.d2h_bytes_total + pipe.base.d2h_refetch_bytes_total
+                - d2h0) / n,
+           "host_entropy_ms_per_frame":
+               (pipe.base.host_entropy_ms_total - ems0) / n,
+           "host_coded_stripes": st["host_coded_stripes"],
+           "staging_stalls": st["staging_stalls"]}
+    if prof is not None:
+        out.update(_device_share(prof, n, wall))
+    pipe.close()
+    out.update(_peak_since(alloc0))
+    return [_annexb(results[k]) for k in range(len(results))], out
+
+
+def _release_cache() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _peak_mark() -> int:
+    """Start a memory-peak window: resets the allocator's peak and returns
+    the bytes allocated now (0 off the card)."""
+    import torch
+
+    if DEVICE != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_since(alloc0: int) -> dict:
+    """The window's peak of allocated device memory over its start, and
+    the allocator's reserved memory now, in MB."""
+    import torch
+
+    if DEVICE != "cuda":
+        return {}
+    return {"peak_allocated_mb":
+                (torch.cuda.max_memory_allocated() - alloc0) / 2**20,
+            "reserved_mb": torch.cuda.memory_reserved() / 2**20}
+
+
+def _device_share(prof, n_frames: int, wall_s: float) -> dict:
+    """Device ops, device time and busy share per frame from a profile."""
+    import torch
+
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(dev), "profiler recorded no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    return {"device_ops_per_frame": len(dev) / n_frames,
+            # 1 launch per P frame: below 1, CUPTI lost records here
+            "me_mc_events_per_frame": sum(
+                "me_mc_kernel" in e.name for e in dev) / n_frames,
+            "device_ms_per_frame": sum(e.time_range.elapsed_us()
+                                       for e in dev) / 1e3 / n_frames,
+            "device_busy_share": busy / 1e6 / wall_s,
+            "wall_ms_per_frame": wall_s * 1e3 / n_frames}
+
+
+def _counted_run(profile: str, batch: int, n_batches: int, **kw):
+    """``_batch_run`` with the me_mc count set to 0 just before it and
+    read just after; the count must be the run's P frames (all but the
+    first frame). Returns (stripes, numbers with ``me_mc_launches``)."""
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+
+    me_mc_stripes.launches = 0
+    stripes, res = _batch_run(profile, batch, n_batches, **kw)
+    res["me_mc_launches"] = me_mc_stripes.launches
+    check(res["me_mc_launches"] == len(stripes) - 1,
+          f"{profile} batch {batch}: {res['me_mc_launches']} me_mc "
+          f"launches for {len(stripes) - 1} P frames")
+    return stripes, res
+
+
+def phase_h264_batch():
+    """Batched dispatch at 1080p with frames made on the card, for both
+    H.264 profiles: one frame per dispatch, then CHURN_BATCH (the served
+    batch) and BATCH frames per ``submit_batch``, over the same frames
+    (every frame's stripes must equal the one-frame run's), each timed
+    and with its memory peak; then B = 1 and B = BATCH profiled (device
+    ops per frame), and B = BATCH profiled once more with the whole batch
+    in one packer call (``h264_device.PACK_FRAMES`` = BATCH), which weighs
+    the chunked pack's ops against its memory. Last, a short host-tier
+    run at BATCH (its D2H bytes per frame), whose stripes must equal the
+    device tier's one-frame run. Every run's me_mc launches are counted
+    from 0 on their own. Returns the phase and, per path, the launches of
+    its timed run."""
+    from selkies_tpu_torch.encoder import h264_device
+
+    out = {"phase": "h264_batch", "width": W, "height": H, "batch": BATCH,
+           "pack_frames": h264_device.PACK_FRAMES,
+           "source": "DeviceScrollSource, frames made on the card",
+           "profiles": {}}
+    launches = {}
+    solo_striped = None
+    for profile in ("x264enc-striped", "x264enc"):
+        res = {}
+        solo, res["batch_1"] = _counted_run(profile, 1, N_BATCHES)
+        launches[f"{profile}/batch1"] = res["batch_1"]["me_mc_launches"]
+        for b in (CHURN_BATCH, BATCH):
+            batched, res[f"batch_{b}"] = _counted_run(profile, b, N_BATCHES)
+            same = sum(x == y for x, y in zip(solo, batched))
+            check(len(solo) == len(batched) and same == len(solo),
+                  f"{profile}: batch {b} equals batch 1 on {same} of "
+                  f"{len(solo)} frames")
+            check(sum(len(x) for x in batched) > 0, f"{profile}: no stripes")
+            res[f"batch_{b}"]["frames_identical_to_batch_1"] = same
+            launches[f"{profile}/batch{b}"] = \
+                res[f"batch_{b}"]["me_mc_launches"]
+        _, res["profile_batch_1"] = _counted_run(profile, 1, PROFILE_BATCHES,
+                                                 profiled=True)
+        _, res[f"profile_batch_{BATCH}"] = _counted_run(
+            profile, BATCH, PROFILE_BATCHES, profiled=True)
+        chunk = h264_device.PACK_FRAMES
+        h264_device.PACK_FRAMES = BATCH
+        try:
+            _, res[f"profile_batch_{BATCH}_one_pack"] = _counted_run(
+                profile, BATCH, PROFILE_BATCHES, profiled=True)
+        finally:
+            h264_device.PACK_FRAMES = chunk
+        # the one-call pack's peak is no path's: hand its cached blocks
+        # back, so later phases read the served paths' reserve
+        _release_cache()
+        res["device_ops_ratio_1_to_batch"] = (
+            res["profile_batch_1"]["device_ops_per_frame"]
+            / res[f"profile_batch_{BATCH}"]["device_ops_per_frame"])
+        out["profiles"][profile] = res
+        if profile == "x264enc-striped":
+            solo_striped = solo
+    host, res = _counted_run("x264enc-striped", BATCH, N_HOST_BATCHES,
+                             entropy="host")
+    same = sum(a == b for a, b in zip(host, solo_striped))
+    check(same == len(host),
+          f"host tier batch {BATCH}: {same} of {len(host)} frames equal the "
+          "device tier's")
+    res["frames_identical_to_device_batch_1"] = same
+    launches[f"x264enc-striped/host/batch{BATCH}"] = res["me_mc_launches"]
+    out["host_tier"] = res
+    return out, launches
+
+
+def phase_jpeg_device_frames():
+    """The JPEG pipeline behind its async driver at 1080p, fed N_FRAMES
+    scroll frames made on the card (DeviceScrollSource at the padded
+    1088 rows, handed over as tensors: no staging) and, in turn, the same
+    frames as host arrays (staged and uploaded): host, device, device,
+    host. Every run's stripes must be equal. Returns the phase and the
+    dct8 launches of its device-frame runs."""
+    from selkies_tpu_torch.capture.synthetic import DeviceScrollSource
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+
+    pad_h = -(-H // STRIPE) * STRIPE        # the encoder's padded height
+    src = DeviceScrollSource(W, pad_h, seed=2, device=DEVICE)
+    dev_frames = [src.next_frame() for _ in range(N_FRAMES + 1)]
+    host_frames = [f.cpu().numpy() for f in dev_frames]
+    runs, launches = [], 0
+    for kind in ("host", "device", "device", "host"):
+        frames = dev_frames if kind == "device" else host_frames
+        l0 = dct8_quant_zigzag.launches
+        _, pipe, _, results, wall, st = _timed_run(_pipeline, frames, 1)
+        if kind == "device":
+            launches += dct8_quant_zigzag.launches - l0
+            check(pipe._staging.staged_total == 0,
+                  "device frames went through the staging ring")
+        check(len(results) == N_FRAMES and st["encode_errors"] == 0,
+              f"jpeg {kind} frames: {len(results)} of {N_FRAMES}, {st}")
+        runs.append((kind, results, _rates(N_FRAMES, wall, st), st))
+    want = [[(x.y_start, x.jpeg) for x in s] for _, s in runs[0][1]]
+    for kind, results, _, _ in runs[1:]:
+        got = [[(x.y_start, x.jpeg) for x in s] for _, s in results]
+        check(got == want, f"jpeg {kind} frames: stripes differ")
+    out = {"phase": "jpeg_device_frames", "width": W, "height": pad_h,
+           "frames": N_FRAMES, "order": [r[0] for r in runs],
+           "runs": [dict(kind=k, **rates,
+                         d2h_bytes_per_frame=st["d2h_bytes_per_frame"])
+                    for k, _, rates, st in runs],
+           "kernel_launches_device_runs": launches}
+    for kind in ("host", "device"):
+        fps = [r[2]["fps"] for r in runs if r[0] == kind]
+        out[f"{kind}_frames_fps_mean"] = sum(fps) / len(fps)
+    out["device_over_host_fps"] = (out["device_frames_fps_mean"]
+                                   / out["host_frames_fps_mean"])
+    return out, launches
+
+
+#: encoder_churn: cycles per profile, frames per cycle (the batched
+#: encoder's: an IDR batch, then one batched dispatch), and the most the
 #: reserved memory may grow from the 2nd cycle's reading to the last's
 CHURN_CYCLES = 8
 CHURN_FRAMES = 3
+CHURN_BATCH = 4
 CHURN_GROWTH_MB = 256
 
 
@@ -1224,26 +1577,31 @@ def phase_encoder_churn():
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
 
     src = SyntheticSource(W, H, pattern="scroll", seed=11)
-    frames = [src.next_frame() for _ in range(CHURN_FRAMES)]
+    frames = [src.next_frame() for _ in range(2 * CHURN_BATCH)]
     out = {"phase": "encoder_churn", "width": W, "height": H,
            "cycles": CHURN_CYCLES, "frames_per_cycle": CHURN_FRAMES,
-           "reserved_mb": {}}
-    for name, make in (("jpeg", _pipeline), ("x264enc-striped", _h264_pipeline),
-                       ("x264enc", _fullframe_pipeline),
-                       ("x264enc-striped/host",
-                        lambda: _served("x264enc-striped", "host"))):
+           "batched_frames_per_cycle": 2 * CHURN_BATCH, "reserved_mb": {}}
+    for name, make, n in (
+            ("jpeg", _pipeline, CHURN_FRAMES),
+            ("x264enc-striped", _h264_pipeline, CHURN_FRAMES),
+            ("x264enc", _fullframe_pipeline, CHURN_FRAMES),
+            ("x264enc-striped/host",
+             lambda: _served("x264enc-striped", "host"), CHURN_FRAMES),
+            (f"x264enc-striped/batch{CHURN_BATCH}",
+             lambda: _served("x264enc-striped", batch=CHURN_BATCH),
+             2 * CHURN_BATCH)):
         readings = []
         for _ in range(CHURN_CYCLES):
             drv = make()[2]
-            for f in frames:
+            for f in frames[:n]:
                 while drv.try_submit(f) is None:
                     time.sleep(0.0005)
             results = drv.flush()
             st = drv.stats()
             drv.close()
             drv.join(30.0)
-            check(len(results) == CHURN_FRAMES and st["encode_errors"] == 0,
-                  f"churn {name}: {len(results)} of {CHURN_FRAMES} frames, {st}")
+            check(len(results) == n and st["encode_errors"] == 0,
+                  f"churn {name}: {len(results)} of {n} frames, {st}")
             del drv, results
             gc.collect()
             if DEVICE == "cuda":
@@ -1423,6 +1781,35 @@ def main() -> int:
     kern_me["launches_by_path"]["x264enc"] = launches
     h264_full["noise_qp18"] = check_fullframe_large_payload()
 
+    # batched H.264 with frames made on the card (both profiles, and the
+    # host tier): counts from 0 just before, read just after
+    _settle("h264_batch")
+    dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    h264_batch, batch_launches = phase_h264_batch()
+    check(dct8_quant_zigzag.launches == 0, "the batched path launched dct8")
+    kern_me["launches_by_path"].update(batch_launches)
+    _settle("server_h264_batch")
+    me_mc_stripes.launches = 0
+    alloc0 = _peak_mark()
+    server_batch = phase_server("x264enc-striped", batch=CHURN_BATCH)
+    server_batch["me_mc_launches"] = me_mc_stripes.launches
+    server_batch.update(_peak_since(alloc0))
+    check(server_batch["me_mc_launches"]
+          >= server_batch["frames_received"] - 1,
+          "batched server path did not run me_mc for every P frame")
+    kern_me["launches_by_path"][
+        f"x264enc-striped/batch{CHURN_BATCH} (server)"] = \
+        server_batch["me_mc_launches"]
+
+    # JPEG fed with frames made on the card: counts from 0 just before
+    _settle("jpeg_device_frames")
+    dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    jpeg_dev, dev_launches = phase_jpeg_device_frames()
+    check(dev_launches == 2 * (N_FRAMES + 1) and me_mc_stripes.launches == 0,
+          f"jpeg device frames: {dev_launches} dct8 launches for "
+          f"{2 * (N_FRAMES + 1)} frames")
+    kern["launches_by_path"]["jpeg/device_frames"] = dev_launches
+
     # the host rungs, each its own path; then each against its device rung
     host = {}
     for profile, kernel, other, expect in (
@@ -1463,13 +1850,16 @@ def main() -> int:
     emit(server)
     emit(server_h264)
     emit(server_full)
+    emit(h264_batch)
+    emit(server_batch)
+    emit(jpeg_dev)
     emit(churn)
     emit(cross)
     emit(prof)
     emit(prof_h264)
     emit(prof_full)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
-          "settled": SETTLED})
+          "settled": SETTLED, "profiler": PROFILER})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -56,3 +56,29 @@ def encoder_stream(device: torch.device) -> "Optional[torch.cuda.Stream]":
             stream = torch.cuda.Stream(device=device)
             _streams[device] = stream
         return stream
+
+
+def adopt_frame(frame: torch.Tensor, device: torch.device,
+                stream: "Optional[torch.cuda.Stream]") -> torch.Tensor:
+    """Take over a uint8 frame tensor (or a stacked batch of frames) that
+    a caller made on ``device``, for an encoder that works on ``stream``
+    (its device's encoder stream; ``None`` on the CPU).
+
+    A tensor on another device, or of another type, raises ``ValueError``:
+    nothing is copied behind the caller's back. On the card the caller
+    wrote the frame on its current stream, while the encoder reads it on
+    ``stream``; so ``stream`` waits for the work queued so far on the
+    caller's stream, and the frame's memory is marked as in use on
+    ``stream`` (``record_stream``), so that the caching allocator does not
+    hand it to a later allocation before the encoder's reads are done.
+    Call it from the thread that made the frame: the current stream is
+    per thread. Both steps only enqueue; neither waits for the device."""
+    if frame.device != torch.device(device):
+        raise ValueError(f"frame tensor on {frame.device}; the encoder "
+                         f"runs on {device}")
+    if frame.dtype != torch.uint8:
+        raise ValueError(f"frame tensor of {frame.dtype}; uint8 expected")
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(frame.device))
+        frame.record_stream(stream)
+    return frame

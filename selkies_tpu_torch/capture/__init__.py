@@ -1,2 +1,2 @@
 from .base import FrameSource  # noqa: F401
-from .synthetic import SyntheticSource  # noqa: F401
+from .synthetic import DeviceScrollSource, SyntheticSource  # noqa: F401

@@ -1,6 +1,6 @@
-"""Deterministic synthetic frame source (copy of ``SyntheticSource`` from
-``selkies_tpu/capture/synthetic.py``; the device-resident scroll source is
-not ported yet).
+"""Deterministic synthetic frame sources (counterparts of
+``SyntheticSource`` and ``DeviceScrollSource`` in
+``selkies_tpu/capture/synthetic.py``).
 
 Patterns model desktop-streaming workloads: static UI with a moving region
 (the common case damage gating exploits), scrolling text, and full-motion
@@ -12,8 +12,47 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
+from .._device import DeviceLike, resolve_device
 from .base import FrameSource
+
+
+class DeviceScrollSource:
+    """Scrolling frames made on the device, for measuring the encoder
+    rather than the host-to-device link.
+
+    The same "scroll" workload as :class:`SyntheticSource` (every stripe
+    damaged every frame), frame for frame, wrap-around included: the
+    background is uploaded once, and each frame (or batch) is one gather
+    of its rows, ``row r of frame t = background row (r + 4t) mod H``.
+    Frames are uint8 (H, W, 3) tensors, batches (n, H, W, 3), made on the
+    caller's current stream; the encoders take them over as they are
+    (``adopt``). ``device=None`` is the card; the tests pass ``"cpu"``.
+    """
+
+    def __init__(self, width: int, height: int, seed: int = 0,
+                 device: DeviceLike = None) -> None:
+        self.device = resolve_device(device)
+        base = SyntheticSource(width, height, pattern="scroll", seed=seed)
+        self.width, self.height = width, height
+        self._bg = torch.from_numpy(base._bg).to(self.device)
+        self._rows = torch.arange(height, device=self.device)
+        self._t = 0
+
+    def next_frame(self) -> torch.Tensor:
+        t = self._t
+        self._t += 1
+        return self._bg[(self._rows + 4 * (t % self.height)) % self.height]
+
+    def next_batch(self, n: int) -> torch.Tensor:
+        """(n, H, W, 3): the next n frames in one gather (frame by frame
+        would cost n launches)."""
+        t = self._t
+        self._t += n
+        shift = 4 * ((t + torch.arange(n, device=self.device))
+                     % self.height)
+        return self._bg[(self._rows + shift[:, None]) % self.height]
 
 
 class SyntheticSource(FrameSource):

@@ -35,9 +35,9 @@ logger = logging.getLogger("selkies_tpu_torch.encoder.async_driver")
 class AsyncEncodeDriver:
     """Non-blocking facade + driver thread around a pipelined encoder.
 
-    ``pipe`` is a :class:`~.pipeline.PipelinedJpegEncoder`; the driver is
-    its only user after construction, so the pipe needs no locking of its
-    own.
+    ``pipe`` is a :class:`~.pipeline.PipelinedJpegEncoder` or
+    :class:`~.pipeline.PipelinedH264Encoder`; the driver is its only user
+    after construction, so the pipe needs no locking of its own.
 
     Capture-loop surface: ``try_submit`` / ``poll`` / ``flush`` /
     ``force_keyframe`` / ``close`` / ``stats`` / ``on_error`` — plus
@@ -49,9 +49,15 @@ class AsyncEncodeDriver:
     #: cheap; the short beat keeps both submit and harvest latency low)
     POLL_INTERVAL_S = 0.002
 
-    def __init__(self, pipe, *, wire_fullframe: bool = False) -> None:
+    def __init__(self, pipe, *, flush_partial_when_idle: bool = True,
+                 wire_fullframe: bool = False) -> None:
         self.pipe = pipe
         self.submit_depth = max(4, pipe.depth)
+        #: JPEG / batch=1 H.264: ship a partial fetch group as soon as the
+        #: submit queue runs dry (lowest latency). Batched H.264 keeps
+        #: False, so that the pipe's re-armed batch deadline, not every
+        #: idle poll, decides when a partial batch ships.
+        self.flush_partial_when_idle = bool(flush_partial_when_idle)
         #: ship each frame as one 0x00 full-frame packet instead of 0x04
         #: stripes (the x264enc profile); read by the server only
         self.wire_fullframe = bool(wire_fullframe)
@@ -87,7 +93,13 @@ class AsyncEncodeDriver:
     def try_submit(self, frame) -> Optional[int]:
         """Queue one frame for the driver thread; None = dropped (queue
         full — the pipeline is not keeping up, backpressure at the edge
-        instead of a stalled event loop)."""
+        instead of a stalled event loop).
+
+        A frame tensor on the encoder's device is handed over here, in the
+        caller's thread, where its stream is current (the encoder's
+        ``adopt``: it only enqueues a stream wait; a tensor on another
+        device raises); the driver thread submits it as it is."""
+        frame = self.pipe.base.adopt(frame)
         with self._cond:
             if self._stop:
                 return None
@@ -226,7 +238,7 @@ class AsyncEncodeDriver:
         # loss cannot shift later results onto wrong seqs.
         for seq, frame in work:
             try:
-                pipe_seq = self.pipe.submit(frame)
+                pipe_seq = self.pipe._submit(frame)
             except Exception as exc:
                 self._count_error(exc)
             else:
@@ -238,7 +250,8 @@ class AsyncEncodeDriver:
             # fetch group as soon as the submit queue runs dry
             with self._cond:
                 idle = not self._in_q
-            self._harvest(flush_partial=idle)
+            self._harvest(flush_partial=(
+                idle and self.flush_partial_when_idle))
             self._error_streak = 0
         except Exception as exc:
             # harvest failure: completed frames stay queued in the
@@ -257,7 +270,7 @@ class AsyncEncodeDriver:
                     break
                 except Exception as exc:
                     self._count_error(exc)
-                    if self.pipe.n_inflight == 0:
+                    if self.pipe.n_inflight == 0 and not self.pipe.n_held:
                         break
         with self._cond:
             self._stats_cache = dict(self.pipe.stats())
@@ -270,9 +283,10 @@ class AsyncEncodeDriver:
                 return False
             if self._in_q or self._flush_req > self._flush_ack:
                 return True
-            # in-flight work pending: short beat, then re-poll.
-            # Otherwise sleep until new work arrives.
-            waiting = self.pipe.n_inflight > 0
+            # in-flight work pending: short beat, then re-poll; a forming
+            # batch's deadline needs the beat too. Otherwise sleep until
+            # new work arrives.
+            waiting = self.pipe.n_inflight > 0 or self.pipe.n_held > 0
             self._cond.wait(self.POLL_INTERVAL_S if waiting else 0.25)
         return True
 

@@ -31,7 +31,7 @@ tensor code; a hand-written kernel for it is later work.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -420,16 +420,20 @@ def _any(x: torch.Tensor, start: int) -> torch.Tensor:
 
 
 def pack_p_frame_words(mv, luma, chroma_dc, chroma_ac, update, *,
-                       mb_w: int, mb_h: int, max_stripe_bytes: int):
-    """Device CAVLC over one P frame's level tensors.
+                       mb_w: int, mb_h: int, max_stripe_bytes: int,
+                       frames: int = 1):
+    """Device CAVLC over P frames' level tensors.
 
     mv [S, n, 2] (dy, dx); luma [S, n, 16, 4, 4] (raster 4x4 grid);
     chroma_dc [S, n, 2, 2, 2]; chroma_ac [S, n, 2, 4, 4, 4] (position 0
-    zeroed); update [S] bool — stripes outside the mask pack nothing.
+    zeroed); update [S] bool — stripes outside the mask pack nothing. The
+    S axis holds ``frames`` frames' stripes, frame-major: every stripe is
+    coded on its own, and each frame's stripes compact on their own.
 
-    Returns (words [S*V] int64 of 32-bit values — per-stripe P-slice
-    payloads, MSB-first, compacted back to back; t_bits [S]; base_words
-    [S]; overflow [S] bool), V = max_stripe_bytes / 4."""
+    Returns (words [frames, S/frames*V] int64 of 32-bit values — each
+    frame's per-stripe P-slice payloads, MSB-first, compacted back to
+    back; t_bits [S]; base_words [S], from the start of its frame's
+    words; overflow [S] bool), V = max_stripe_bytes / 4."""
     S = mv.shape[0]
     n = mb_w * mb_h
     V = max_stripe_bytes // 4
@@ -577,13 +581,18 @@ def pack_p_frame_words(mv, luma, chroma_dc, chroma_ac, update, *,
     words_stripe, t_bits = _stripe_words(
         all_bits.reshape(S, U * SLOT), all_lens.reshape(S, U * SLOT), V)
 
-    wc = torch.clamp((t_bits + 31) // 32, max=V)
-    base_words = F.pad(torch.cumsum(wc, 0)[:-1], (1, 0))
-    j = torch.arange(S * V, device=dev)
-    sidx = (torch.searchsorted(base_words, j, right=True) - 1).clamp(0, S - 1)
-    src = sidx * V + (j - base_words[sidx]).clamp(0, V - 1)
-    valid = j < base_words[-1] + wc[-1]
-    words = torch.where(valid, words_stripe.reshape(-1)[src], 0)
+    # each frame's stripes back to back: a stripe's base is the running
+    # sum of the word counts before it in its frame
+    fs = S // frames
+    wc = torch.clamp((t_bits + 31) // 32, max=V).reshape(frames, fs)
+    base_words = F.pad(torch.cumsum(wc, 1)[:, :-1], (1, 0))
+    j = torch.arange(fs * V, device=dev).repeat(frames, 1)
+    sidx = (torch.searchsorted(base_words, j, right=True) - 1) \
+        .clamp(0, fs - 1)
+    src = sidx * V + (j - base_words.gather(1, sidx)).clamp(0, V - 1)
+    valid = j < (base_words[:, -1] + wc[:, -1])[:, None]
+    words = torch.where(valid, words_stripe.reshape(frames, fs * V)
+                        .gather(1, src), 0)
 
     # a slot may span at most 2 words (len <= 32); exp-Golomb header slots
     # are the only lengths not bounded by a table — flag the stripe rather
@@ -591,7 +600,7 @@ def pack_p_frame_words(mv, luma, chroma_dc, chroma_ac, update, *,
     hdr_slot_ovf = _any(hdr_lens > 32, 1)
     overflow = (bl_ovf | cd_ovf | hdr_slot_ovf
                 | (t_bits > 32 * V) | unit_ovf) & upd
-    return words, t_bits, base_words, overflow
+    return words, t_bits, base_words.reshape(-1), overflow
 
 
 def _le4(x: torch.Tensor) -> torch.Tensor:
@@ -601,16 +610,22 @@ def _le4(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_p_frame(mv, luma, chroma_dc, chroma_ac, damage, update, *,
-                 mb_w: int, mb_h: int, max_stripe_bytes: int):
+                 mb_w: int, mb_h: int, max_stripe_bytes: int,
+                 frames: Optional[int] = None):
     """Fetchable uint8 buffer: [S, HEAD_BYTES] head + big-endian payload.
 
     Head per stripe: t_bits u32 LE, base_words u32 LE, damage u8,
     overflow u8, 2 pad bytes. Payload: the compacted words MSB-first, so
-    byte i of a stripe's payload carries its bits 8i..8i+7."""
+    byte i of a stripe's payload carries its bits 8i..8i+7.
+
+    ``frames=B`` codes B frames' stripes at once (the S axis frame-major)
+    and returns [B, L]: row b is the buffer frame b alone would give."""
     words, t_bits, base_words, overflow = pack_p_frame_words(
         mv, luma, chroma_dc, chroma_ac, update,
-        mb_w=mb_w, mb_h=mb_h, max_stripe_bytes=max_stripe_bytes)
+        mb_w=mb_w, mb_h=mb_h, max_stripe_bytes=max_stripe_bytes,
+        frames=frames or 1)
     S = t_bits.shape[0]
+    B = words.shape[0]
     head = torch.cat([
         _le4(t_bits), _le4(base_words),
         damage.to(torch.uint8)[:, None], overflow.to(torch.uint8)[:, None],
@@ -618,8 +633,9 @@ def pack_p_frame(mv, luma, chroma_dc, chroma_ac, damage, update, *,
     ], dim=1)
     payload = torch.stack([(words >> 24) & 0xFF, (words >> 16) & 0xFF,
                            (words >> 8) & 0xFF, words & 0xFF],
-                          dim=-1).to(torch.uint8).reshape(-1)
-    return torch.cat([head.reshape(-1), payload])
+                          dim=-1).to(torch.uint8)
+    buf = torch.cat([head.reshape(B, -1), payload.reshape(B, -1)], dim=1)
+    return buf if frames else buf[0]
 
 
 # ---------------------------------------------------------------------------

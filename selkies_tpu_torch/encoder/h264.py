@@ -22,6 +22,10 @@ Split of work:
 Every device call runs on the encoder's one CUDA stream (``stream``). The
 fetch of a frame's head is a ``non_blocking`` copy into pinned memory with
 an event that :meth:`H264StripeEncoder.harvest` waits on.
+:meth:`H264StripeEncoder.dispatch_batch` encodes B frames in one batched
+step (``h264_device.encode_frame_p_batch_*``); its frames share one read
+of their heads and keep no full buffer, so a frame whose bytes pass the
+batch's pinned prefix is coded from its exact levels.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .._device import encoder_stream, resolve_device
+from .._device import adopt_frame, encoder_stream, resolve_device
 from ..native import cavlc_lib
 from . import device_cavlc as dcav
 from . import h264_device as dev
@@ -241,13 +245,20 @@ class _H264Pending:
     """One dispatched frame."""
 
     fetch: Optional[HostCopy]   # head (P) or flat16 (IDR) copy, if started
-    flat16: torch.Tensor        # exact levels on the device
+    flat16: Optional[torch.Tensor]       # exact levels on the device
     is_idr: bool
     paint: np.ndarray
     qp: np.ndarray
     buf: Optional[torch.Tensor] = None   # full device buffer (P): CAVLC
                                          # payloads or the sparse levels
     head: Optional[torch.Tensor] = None  # its fetch prefix (P)
+    #: a frame of a batched dispatch keeps no full buffer: the batch's
+    #: [B, prefix] heads and [B, S, words] exact levels, its row in them,
+    #: and one host copy of the heads shared by the batch's frames
+    batch_heads: Optional[torch.Tensor] = None
+    batch_flat16: Optional[torch.Tensor] = None
+    batch_index: int = 0
+    batch_cache: Optional[dict] = None
 
 
 class H264StripeEncoder:
@@ -414,8 +425,14 @@ class H264StripeEncoder:
     def dispatch(self, rgb, fetch: bool = True) -> _H264Pending:
         """One device step for the whole frame (every stripe); pair with
         :meth:`harvest`. ``rgb`` is an (H, W, 3) uint8 array or a tensor on
-        the encoder's device. ``fetch=False`` starts no host copy (the
-        pipeline owns the transfer)."""
+        the encoder's device (handed over here: :meth:`adopt`).
+        ``fetch=False`` starts no host copy (the pipeline owns the
+        transfer)."""
+        return self._dispatch(self.adopt(rgb), fetch)
+
+    def _dispatch(self, rgb, fetch: bool) -> _H264Pending:
+        """:meth:`dispatch` of a frame already handed over."""
+        rgb = self._input(rgb)            # before any state changes
         is_idr = any(st.need_idr for st in self.stripes)
         if is_idr:
             # optimistic clear so frames dispatched ahead don't re-IDR; an
@@ -433,8 +450,6 @@ class H264StripeEncoder:
                     st.painted_over = True
 
         with self.stream_context():
-            if not isinstance(rgb, torch.Tensor):
-                rgb = self._upload(np.asarray(rgb, dtype=np.uint8))
             if is_idr:
                 (flat16, self._prev_y, self._prev_cb, self._prev_cr,
                  self._ref_y, self._ref_cb, self._ref_cr) = \
@@ -475,26 +490,127 @@ class H264StripeEncoder:
         return _H264Pending(fetch=copy, flat16=flat16, is_idr=is_idr,
                             paint=paint, qp=qp_arr, buf=buf, head=head)
 
-    def _recover_undershoot(self, p: _H264Pending, host, needed: int):
-        """A fetch prefix that missed the frame's bytes: re-read the right
-        bucket of the full device buffer; then re-tier the estimate."""
+    def dispatch_batch(self, rgbs, fetch: bool = True
+                       ) -> List[_H264Pending]:
+        """Encode B sequential frames in one batched device step; pair
+        each pending with :meth:`harvest`, in order. ``rgbs`` is a (B, H,
+        W, 3) uint8 array or a tensor on the encoder's device.
+
+        The batch's fetch prefix is pinned when it is dispatched, and
+        paint-over is forecast per frame of the batch (harvest has not yet
+        advanced the history of frames inside it), so a stripe crossing
+        the trigger mid-batch paints at the right frame. While any stripe
+        needs an IDR the frames go through :meth:`dispatch` one by one.
+        ``fetch=False`` starts no host copy (the pipeline owns it). A
+        tensor is handed over here (:meth:`adopt`)."""
+        return self._dispatch_batch(self.adopt(rgbs), fetch)
+
+    def _dispatch_batch(self, rgbs, fetch: bool) -> List[_H264Pending]:
+        """:meth:`dispatch_batch` of a batch already handed over."""
+        B = int(rgbs.shape[0])
+        rgbs = self._input(rgbs)          # before any state changes
+        if any(st.need_idr for st in self.stripes):
+            return [self._dispatch(rgbs[b], fetch) for b in range(B)]
+        paints = np.zeros((B, self.n_stripes), np.int8)
+        for b in range(B):
+            for i, st in enumerate(self.stripes):
+                # if damage lands mid-batch instead, that frame emits at
+                # the paint QP (more quality, never a stale stripe)
+                if (st.static_frames + b >= self.paint_over_trigger
+                        and not st.painted_over):
+                    paints[b, i] = 1
+                    st.painted_over = True
+        qps = np.where(paints != 0, self.paint_over_qp, self.qp)
+        prefix = self._choose_prefix()
+        kw = dict(pad_h=self.pad_h, pad_w=self.pad_w,
+                  n_stripes=self.n_stripes, sh=self.stripe_h,
+                  search=self.search, prefix=prefix)
+        if self.entropy == "host":
+            step = dev.encode_frame_p_batch_rgb
+            kw["cap_frac"] = CAP_FRAC
+        else:
+            step = dev.encode_frame_p_batch_cavlc_rgb
+            kw["max_stripe_bytes"] = self._cavlc_msb
+        with self.stream_context():
+            (heads, flat16s, self._prev_y, self._prev_cb, self._prev_cr,
+             self._ref_y, self._ref_cb, self._ref_cr) = step(
+                rgbs, self._prev_y, self._prev_cb,
+                self._prev_cr, self._ref_y, self._ref_cb, self._ref_cr,
+                self._upload(paints.astype(np.int32)),
+                self._upload(np.full(B, self.qp, np.int32)),
+                self.paint_over_qp, **kw)
+            cache = {"copy": HostCopy(heads, self.stream) if fetch
+                     else None}
+        return [_H264Pending(fetch=None, flat16=None, is_idr=False,
+                             paint=paints[b], qp=qps[b], batch_heads=heads,
+                             batch_flat16=flat16s, batch_index=b,
+                             batch_cache=cache) for b in range(B)]
+
+    def _input(self, rgb) -> torch.Tensor:
+        """A frame (or a stacked batch) on the device: a tensor (already
+        handed over) as it is, a host array uploaded on the encoder's
+        stream."""
+        if isinstance(rgb, torch.Tensor):
+            return rgb
+        with self.stream_context():
+            return self._upload(np.asarray(rgb, dtype=np.uint8))
+
+    def adopt(self, frame):
+        """Hand over a uint8 RGB frame tensor (or a stacked batch) that a
+        caller made on the encoder's device (``_device.adopt_frame``), in
+        the caller's thread; a host array passes as it is. Every public
+        entry point of the encoders, pipelines and drivers calls it once,
+        where the frame leaves its caller."""
+        if not isinstance(frame, torch.Tensor):
+            return frame
+        return adopt_frame(frame, self.device, self.stream)
+
+    def _batch_host(self, p: _H264Pending) -> np.ndarray:
+        """Frame ``p``'s head from the batch's one host copy of its heads
+        (read once, by the first of its frames to be harvested)."""
+        cache = p.batch_cache
+        if cache.get("host") is None:
+            copy = cache.get("copy")
+            cache["host"] = copy.numpy() if copy is not None \
+                else self._to_host(p.batch_heads)
+            self.d2h_fetch_bytes_total += cache["host"].nbytes
+        return cache["host"][p.batch_index]
+
+    def _recover_undershoot(self, p: _H264Pending, host, needed: int,
+                            ovf, damage):
+        """A fetch prefix that missed the frame's bytes. A single-frame
+        dispatch re-reads the right bucket of its full device buffer. A
+        batched one keeps no full buffer: every emitting stripe then takes
+        its exact levels (returned in ``ovf``), and an undershoot at the
+        large prefix grows it. Either way the estimate is re-tiered."""
         if needed > len(host):
-            host = self._to_host(p.buf[:self._bucket(needed)])
-            self.d2h_refetch_bytes_total += host.nbytes
+            if p.buf is not None:
+                host = self._to_host(p.buf[:self._bucket(needed)])
+                self.d2h_refetch_bytes_total += host.nbytes
+            else:
+                ovf = ovf | damage | (p.paint != 0)
+                if len(host) >= self._prefix_large:
+                    self._prefix_large = min(
+                        self._buf_bytes, self._bucket(needed + needed // 2))
         self._guess_bytes = self._bucket(
             max(needed + needed // 2, self._fixed_bytes + 4096))
-        return host
+        return host, ovf
 
     def _refetch_overflow_rows(self, p: _H264Pending, damage, ovf):
         """Exact flat16 rows of the emitting stripes whose device pack
-        overflowed (rare: |level| beyond the escape range, or a stripe past
-        its byte or cell budget)."""
+        overflowed (rare: |level| beyond the escape range, a stripe past
+        its byte or cell budget, or a batched frame's undershoot). More
+        than two rows read the whole frame's levels at once."""
+        if p.flat16 is None:
+            p.flat16 = p.batch_flat16[p.batch_index]
         need = [i for i in range(self.n_stripes)
                 if ovf[i] and (damage[i] or p.paint[i])]
         if not need:
             return {}
-        rows = self._to_host(p.flat16[need])
+        rows = self._to_host(p.flat16 if len(need) > 2 else p.flat16[need])
         self.d2h_refetch_bytes_total += rows.nbytes
+        if len(need) > 2:
+            return {i: rows[i] for i in need}
         return dict(zip(need, rows))
 
     def _sparse_row(self, host: np.ndarray, bitmap: np.ndarray, start: int,
@@ -514,7 +630,9 @@ class H264StripeEncoder:
         """Entropy-finish one dispatched frame. Must be called in dispatch
         order. ``host`` supplies the fetched bytes when a pipeline owns the
         transfer."""
-        if host is None:
+        if host is None and p.batch_heads is not None:
+            host = self._batch_host(p)
+        elif host is None:
             host = p.fetch.numpy() if p.fetch is not None else \
                 self._to_host(p.flat16 if p.is_idr else p.head)
             self.d2h_fetch_bytes_total += host.nbytes
@@ -530,7 +648,8 @@ class H264StripeEncoder:
             # words
             wc = np.minimum((t_bits + 31) // 32, self._cavlc_msb // 4)
             needed = self._fixed_bytes + 4 * int(base_words[-1] + wc[-1])
-            host = self._recover_undershoot(p, host, needed)
+            host, ovf = self._recover_undershoot(p, host, needed, ovf,
+                                                 damage)
             refetch = self._refetch_overflow_rows(p, damage, ovf)
         else:
             head = host[:4 * S].reshape(S, 4)
@@ -542,7 +661,8 @@ class H264StripeEncoder:
             ovf = head[:, 3] != 0
             used = np.minimum(counts, self._cap_cells) * dev.CELL
             needed = self._fixed_bytes + int(used.sum())
-            host = self._recover_undershoot(p, host, needed)
+            host, ovf = self._recover_undershoot(p, host, needed, ovf,
+                                                 damage)
             bitmaps = host[4 * S:self._fixed_bytes] \
                 .reshape(S, self._n_cells // 8)
             starts = np.concatenate(
@@ -638,7 +758,11 @@ class H264StripeEncoder:
 
     def encode_frame(self, rgb) -> List[H264Stripe]:
         """RGB (H, W, 3) uint8 -> encoded stripes (damaged/paint-over)."""
-        return self.harvest(self.dispatch(rgb))
+        return self._encode_frame(self.adopt(rgb))
+
+    def _encode_frame(self, rgb) -> List[H264Stripe]:
+        """:meth:`encode_frame` of a frame already handed over."""
+        return self.harvest(self._dispatch(rgb, True))
 
     def request_keyframe(self) -> None:
         """Force IDR on every stripe (client join / pipeline reset)."""

@@ -17,7 +17,7 @@ with one QP per stripe where paint-over raises it.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,6 +31,11 @@ from . import device_cavlc as dcav
 
 MB = 16
 SEARCH = 12
+#: frames per packer call in the batched programs: the packer's working
+#: set (its slot grids) grows with the stripes it codes at once, so a
+#: batch packs in chunks of this many frames (the served batch of 4 in
+#: one call, bench.py's 12 in three) and keeps only each chunk's heads
+PACK_FRAMES = 4
 
 
 class StripeEncodeOut(NamedTuple):
@@ -240,25 +245,44 @@ def _collapse_mv_ties(cur, ref, ref_cb, ref_cr, mv, pred_y, pred_cb,
             torch.where(take_cx, cr_dom, pred_cr))
 
 
+def _damage(y, cb, cr, prev_y, prev_cb, prev_cr, n_stripes: int):
+    """[..., S] bool: stripes whose planes differ from the previous
+    frame's (any leading axes: one frame or a batch)."""
+    lead = y.shape[:-2]
+
+    def differs(a, b):
+        return (a != b).reshape(*lead, n_stripes, -1).any(-1)
+
+    return (differs(y, prev_y) | differs(cb, prev_cb)
+            | differs(cr, prev_cr))
+
+
 def _frame_p_core(y, cb, cr, prev_y, prev_cb, prev_cr, ref_y, ref_cb,
                   ref_cr, paint, qp: int, paint_qp: int, *, n_stripes: int,
                   sh: int, search: int):
     """Whole-frame P encode, every stripe at once: damage, the motion
     search (one kernel launch for all stripes), tie collapse, transform /
     quant / recon; undamaged stripes keep their reference planes."""
+    damage = _damage(y, cb, cr, prev_y, prev_cb, prev_cr, n_stripes)
+    update = damage | (paint != 0)
+    qps = torch.where(paint != 0, paint_qp, qp).to(torch.int32)
+    enc, new_ref_y, new_ref_cb, new_ref_cr = _p_step(
+        y, cb, cr, ref_y, ref_cb, ref_cr, update, qps, n_stripes=n_stripes,
+        sh=sh, search=search)
+    return enc, damage, update, new_ref_y, new_ref_cb, new_ref_cr
+
+
+def _p_step(y, cb, cr, ref_y, ref_cb, ref_cr, update, qps, *,
+            n_stripes: int, sh: int, search: int):
+    """The reference chain of one P frame, given its stripes' update flags
+    and QPs: the motion search (one kernel launch for all stripes), tie
+    collapse, transform / quant / recon. Returns (enc, new reference
+    planes); stripes without an update keep theirs."""
     S = n_stripes
     ys, cbs, crs = (_stripe_view(p, S, h) for p, h in
                     ((y, sh), (cb, sh // 2), (cr, sh // 2)))
-    pys, pcbs, pcrs = (_stripe_view(p, S, h) for p, h in
-                       ((prev_y, sh), (prev_cb, sh // 2), (prev_cr, sh // 2)))
     rys, rcbs, rcrs = (_stripe_view(p, S, h) for p, h in
                        ((ref_y, sh), (ref_cb, sh // 2), (ref_cr, sh // 2)))
-    damage = ((ys != pys).reshape(S, -1).any(1)
-              | (cbs != pcbs).reshape(S, -1).any(1)
-              | (crs != pcrs).reshape(S, -1).any(1))
-    update = damage | (paint != 0)
-    qps = torch.where(paint != 0, paint_qp, qp).to(torch.int32)
-
     mv, pred_y, pred_cb, pred_cr = me_mc_stripes(ys, rys, rcbs, rcrs,
                                                  search=search)
     mv, pred_y, pred_cb, pred_cr = _collapse_mv_ties(
@@ -269,7 +293,7 @@ def _frame_p_core(y, cb, cr, prev_y, prev_cb, prev_cr, ref_y, ref_cb,
     new_ref_y = torch.where(sel, enc.recon_y, rys).reshape(y.shape)
     new_ref_cb = torch.where(sel, enc.recon_cb, rcbs).reshape(cb.shape)
     new_ref_cr = torch.where(sel, enc.recon_cr, rcrs).reshape(cr.shape)
-    return enc, damage, update, new_ref_y, new_ref_cb, new_ref_cr
+    return enc, new_ref_y, new_ref_cb, new_ref_cr
 
 
 def _pack_levels(enc: StripeEncodeOut) -> torch.Tensor:
@@ -284,16 +308,17 @@ def _pack_levels(enc: StripeEncodeOut) -> torch.Tensor:
 
 
 def prepare_planes(rgb: torch.Tensor, pad_h: int, pad_w: int):
-    """RGB (H, W, 3) uint8 -> padded uint8 (Y, Cb, Cr) planes; the pad
-    replicates the edge (the SPS cropping hides it). The color transform is
-    the fused form the JAX encoder's compiled step computes (see
-    ``rgb_to_ycbcr_fused``), since rounding to integers exposes its last
-    bit."""
-    h, w = rgb.shape[:2]
+    """RGB (..., H, W, 3) uint8 -> padded uint8 (Y, Cb, Cr) planes (one
+    frame, or a batch on a leading axis); the pad replicates the edge (the
+    SPS cropping hides it). The color transform is the fused form the JAX
+    encoder's compiled step computes (see ``rgb_to_ycbcr_fused``), since
+    rounding to integers exposes its last bit; it is elementwise, so a
+    batch gives each frame's planes exactly."""
+    h, w = rgb.shape[-3:-1]
     if (pad_h, pad_w) != (h, w):
         rows = torch.arange(pad_h, device=rgb.device).clamp(max=h - 1)
         cols = torch.arange(pad_w, device=rgb.device).clamp(max=w - 1)
-        rgb = rgb.index_select(0, rows).index_select(1, cols)
+        rgb = rgb.index_select(-3, rows).index_select(-2, cols)
     yf, cbf, crf = rgb_to_ycbcr_fused(rgb)
     y = _clip8(torch.round(yf).to(torch.int32))
     cb = _clip8(torch.round(subsample_420(cbf)).to(torch.int32))
@@ -351,7 +376,8 @@ def sparse_geometry(stripe_words: int,
 
 
 def _pack_sparse(flat16: torch.Tensor, damage: torch.Tensor,
-                 update: torch.Tensor, cap_frac: int = 4) -> torch.Tensor:
+                 update: torch.Tensor, cap_frac: int = 4,
+                 frames: Optional[int] = None) -> torch.Tensor:
     """Block-sparse pack of the level buffer (P frames, host entropy).
 
     Most 16-element cells of the levels are all-zero at streaming QPs, so
@@ -368,6 +394,10 @@ def _pack_sparse(flat16: torch.Tensor, damage: torch.Tensor,
     has 209,104 cells, so the count can wrap); a stripe with more nonzero
     cells than ``cap`` or a |level| > 127 sets its overflow flag, and the
     host re-reads that stripe's exact flat16 row.
+
+    ``frames=B`` packs B frames' stripes at once (rows frame-major) and
+    returns [B, L]: each frame's cells compact on their own, so row b is
+    the buffer frame b alone would give.
     """
     S, W = flat16.shape
     dev = flat16.device
@@ -387,24 +417,27 @@ def _pack_sparse(flat16: torch.Tensor, damage: torch.Tensor,
     bitmap = (nzb.reshape(S, n_cells // 8, 8).to(torch.int32)
               * ht.const(_BIT_WEIGHTS, dev)).sum(-1).to(torch.uint8)
 
-    # compact the used cells back to back across stripes
-    used = torch.clamp(count, max=cap) * CELL                      # bytes
-    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                        torch.cumsum(used, 0)[:-1]])
-    total_cap = S * cap * CELL
-    j = torch.arange(total_cap, dtype=torch.int64, device=dev)
-    sidx = (torch.searchsorted(starts, j, right=True) - 1).clamp(0, S - 1)
-    within = j - starts[sidx]
-    valid = within < used[sidx]
-    flat_cells = cells8.reshape(S, cap * CELL)
-    gathered = flat_cells[sidx, within.clamp(0, cap * CELL - 1)]
+    # compact each frame's used cells back to back across its stripes
+    B = frames or 1
+    fs = S // B
+    used = (torch.clamp(count, max=cap) * CELL).reshape(B, fs)     # bytes
+    starts = F.pad(torch.cumsum(used, 1)[:, :-1], (1, 0))
+    total_cap = fs * cap * CELL
+    j = torch.arange(total_cap, dtype=torch.int64, device=dev) \
+        .repeat(B, 1)
+    sidx = (torch.searchsorted(starts, j, right=True) - 1).clamp(0, fs - 1)
+    within = j - starts.gather(1, sidx)
+    valid = within < used.gather(1, sidx)
+    gathered = cells8.reshape(B, total_cap).gather(
+        1, sidx * (cap * CELL) + within.clamp(0, cap * CELL - 1))
     cells_out = torch.where(valid, gathered, torch.zeros_like(gathered))
 
     head = torch.stack([count & 0xFF, (count >> 8) & 0xFF,
                         damage.to(torch.int64), ovf.to(torch.int64)],
                        dim=1).to(torch.uint8)                      # [S, 4]
-    return torch.cat([head.reshape(-1), bitmap.reshape(-1),
-                      cells_out.view(torch.uint8)])
+    buf = torch.cat([head.reshape(B, -1), bitmap.reshape(B, -1),
+                     cells_out.view(torch.uint8)], dim=1)
+    return buf if frames else buf[0]
 
 
 def encode_frame_p_rgb(rgb, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr,
@@ -425,3 +458,99 @@ def encode_frame_p_rgb(rgb, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr,
     flat16 = _pack_levels(enc)
     buf = _pack_sparse(flat16, damage, update, cap_frac=cap_frac)
     return (buf, buf[:prefix], flat16, y, cb, cr, nry, nrcb, nrcr)
+
+
+def _encode_p_batch(rgbs, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr,
+                    paints, qps, paint_qp: int, *, pad_h: int, pad_w: int,
+                    n_stripes: int, sh: int, search: int):
+    """What both batched P programs share. The planes, damage, update
+    flags and QPs of the B frames are computed at once (elementwise, so
+    each frame's are exact: frame b's damage is against frame b-1's
+    planes, frame 0's against ``prev``); the reference chain then runs
+    frame by frame, one motion-search launch each, since frame b
+    predicts from frame b-1's reconstruction. Returns (encs, damage [B, S],
+    update [B, S], flat16s [B, S, words], last planes, new references)."""
+    y, cb, cr = prepare_planes(rgbs, pad_h, pad_w)                # [B, ...]
+    damage = _damage(y, cb, cr, torch.cat([prev_y[None], y[:-1]]),
+                     torch.cat([prev_cb[None], cb[:-1]]),
+                     torch.cat([prev_cr[None], cr[:-1]]), n_stripes)
+    paints = paints != 0
+    update = damage | paints
+    qp_s = torch.where(paints, paint_qp, qps[:, None]).to(torch.int32)
+    encs, flat16s = [], []
+    for b in range(y.shape[0]):
+        enc, ref_y, ref_cb, ref_cr = _p_step(
+            y[b], cb[b], cr[b], ref_y, ref_cb, ref_cr, update[b], qp_s[b],
+            n_stripes=n_stripes, sh=sh, search=search)
+        encs.append(enc)
+        flat16s.append(_pack_levels(enc))
+    return (encs, damage, update, torch.stack(flat16s), y[-1], cb[-1],
+            cr[-1], ref_y, ref_cb, ref_cr)
+
+
+def encode_frame_p_batch_cavlc_rgb(rgbs, prev_y, prev_cb, prev_cr, ref_y,
+                                   ref_cb, ref_cr, paints, qps,
+                                   paint_qp: int, *, pad_h: int, pad_w: int,
+                                   n_stripes: int, sh: int,
+                                   search: int = SEARCH,
+                                   max_stripe_bytes: int, prefix: int):
+    """B sequential P frames with on-device CAVLC (the JAX package's
+    ``lax.scan`` over :func:`encode_frame_p_cavlc_rgb`).
+
+    rgbs (B, H, W, 3) uint8; paints (B, S) int32; qps (B,) int32.
+    Returns (heads [B, prefix], flat16s [B, S, words], the last frame's
+    y, cb, cr, and the new reference planes). The packer runs once over
+    the stripes of every ``PACK_FRAMES`` frames (each stripe is coded on
+    its own), each frame's stripes compacting on their own, so head b
+    equals frame b's single-frame buffer's first ``prefix`` bytes."""
+    (encs, damage, update, flat16s, y, cb, cr, nry, nrcb,
+     nrcr) = _encode_p_batch(
+        rgbs, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr, paints, qps,
+        paint_qp, pad_h=pad_h, pad_w=pad_w, n_stripes=n_stripes, sh=sh,
+        search=search)
+
+    def pack(lo, hi):
+        return dcav.pack_p_frame(
+            *(torch.cat([getattr(e, k) for e in encs[lo:hi]])
+              for k in ("mv", "luma", "chroma_dc", "chroma_ac")),
+            damage[lo:hi].reshape(-1), update[lo:hi].reshape(-1),
+            mb_w=pad_w // MB, mb_h=sh // MB,
+            max_stripe_bytes=max_stripe_bytes, frames=hi - lo)
+
+    return (_chunked_heads(pack, len(encs), prefix), flat16s, y, cb, cr,
+            nry, nrcb, nrcr)
+
+
+def encode_frame_p_batch_rgb(rgbs, prev_y, prev_cb, prev_cr, ref_y, ref_cb,
+                             ref_cr, paints, qps, paint_qp: int, *,
+                             pad_h: int, pad_w: int, n_stripes: int, sh: int,
+                             search: int = SEARCH, cap_frac: int = 4,
+                             prefix: int):
+    """B sequential P frames for host entropy (the JAX package's
+    ``lax.scan`` over :func:`encode_frame_p_rgb`); arguments and returns
+    as :func:`encode_frame_p_batch_cavlc_rgb`. The sparse pack runs once
+    over the stripes of every ``PACK_FRAMES`` frames, with each frame's
+    cells compacted on their own (``_pack_sparse(frames=n)``), so head b
+    equals frame b's single-frame buffer's first ``prefix`` bytes."""
+    (_, damage, update, flat16s, y, cb, cr, nry, nrcb,
+     nrcr) = _encode_p_batch(
+        rgbs, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr, paints, qps,
+        paint_qp, pad_h=pad_h, pad_w=pad_w, n_stripes=n_stripes, sh=sh,
+        search=search)
+
+    def pack(lo, hi):
+        return _pack_sparse(flat16s[lo:hi].reshape((hi - lo) * n_stripes, -1),
+                            damage[lo:hi].reshape(-1),
+                            update[lo:hi].reshape(-1), cap_frac=cap_frac,
+                            frames=hi - lo)
+
+    return (_chunked_heads(pack, flat16s.shape[0], prefix), flat16s, y, cb,
+            cr, nry, nrcb, nrcr)
+
+
+def _chunked_heads(pack, B: int, prefix: int) -> torch.Tensor:
+    """[B, prefix] heads of B frames' buffers, packed ``PACK_FRAMES``
+    frames per call by ``pack(lo, hi)`` ([hi - lo, L]; row b is frame b's
+    one-frame buffer, so the chunking changes no byte)."""
+    return torch.cat([pack(lo, min(B, lo + PACK_FRAMES))[:, :prefix]
+                      for lo in range(0, B, PACK_FRAMES)])

@@ -28,7 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from .._device import encoder_stream, resolve_device
+from .._device import adopt_frame, encoder_stream, resolve_device
 from ..native import entropy_lib
 from ..ops.color import rgb_to_ycbcr, subsample_420
 from ..ops.dct_quant import dct8_quant_zigzag
@@ -417,24 +417,47 @@ class JpegStripeEncoder:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _stage_frame(self, frame: np.ndarray) -> torch.Tensor:
-        """Stage one padded host frame through the ring. encode_frame is
-        synchronous, so the previous ticket is released here and the two
-        slots ping-pong."""
+    def adopt(self, frame):
+        """Hand over an RGB frame tensor a caller made on the encoder's
+        device (``_device.adopt_frame``), in the caller's thread; a host
+        array passes as it is. The tensor must already be padded to
+        ``(pad_h, pad_w, 3)``: the encoder pads host frames only. Every
+        public entry point calls it once, where the frame leaves its
+        caller."""
+        if not isinstance(frame, torch.Tensor):
+            return frame
+        if tuple(frame.shape) != (self.pad_h, self.pad_w, 3):
+            raise ValueError(f"frame tensor {tuple(frame.shape)} must be "
+                             f"padded to {(self.pad_h, self.pad_w, 3)}")
+        return adopt_frame(frame, self.device, self.stream)
+
+    def _frame_input(self, frame) -> torch.Tensor:
+        """One frame on the device: a tensor (already handed over) as it
+        is; a host frame padded and staged through the ring. encode_frame
+        is synchronous, so the previous ticket is released here and the
+        two slots ping-pong."""
+        if isinstance(frame, torch.Tensor):
+            return frame
         self._staging.release(self._staging_ticket)
         staged, self._staging_ticket = self._staging.stage(
-            frame, stream=self.stream)
+            self._pad(np.asarray(frame, dtype=np.uint8)), stream=self.stream)
         return staged
 
-    def encode_frame(self, frame: np.ndarray) -> List[StripeOutput]:
-        """Encode one [H, W, 3] uint8 RGB frame; returns changed stripes only."""
-        frame = self._pad(np.asarray(frame, dtype=np.uint8))
+    def encode_frame(self, frame) -> List[StripeOutput]:
+        """Encode one [H, W, 3] uint8 RGB frame (a host array, or a tensor
+        on the encoder's device padded to ``(pad_h, pad_w, 3)``); returns
+        changed stripes only."""
+        return self._encode_frame(self.adopt(frame))
+
+    def _encode_frame(self, frame) -> List[StripeOutput]:
+        """:meth:`encode_frame` of a frame already handed over."""
+        staged = self._frame_input(frame)
         paint_candidate = self._paint_candidates()
         if self.entropy == "host":
-            return self._encode_frame_host(frame, paint_candidate)
+            return self._encode_frame_host(staged, paint_candidate)
         with self.stream_context():
             packed, yq, cbq, crq = self._step(
-                self._stage_frame(frame), self._prev, self._recip_y,
+                staged, self._prev, self._recip_y,
                 self._recip_c, self._qsel(paint_candidate),
                 self._wm_scaled, self._alpha_inv)
             mw = META_WORDS_PER_STRIPE * self.n_stripes
@@ -453,14 +476,14 @@ class JpegStripeEncoder:
                 words_np, base_np, nbytes_np, ovf_np, emit, yq, cbq, crq)
         return self._assemble(emit, is_paint, scans)
 
-    def _encode_frame_host(self, frame: np.ndarray,
+    def _encode_frame_host(self, staged: torch.Tensor,
                            paint_candidate: np.ndarray) -> List[StripeOutput]:
         """The host rung: the device step without the packer, one fetch of
         the coefficient planes and damage, native coding of each emitted
         stripe."""
         with self.stream_context():
             yq, cbq, crq, damage, new_prev = encode_body(
-                self._stage_frame(frame), self._prev, self._recip_y,
+                staged, self._prev, self._recip_y,
                 self._recip_c, self._qsel(paint_candidate),
                 stripe_h=self.stripe_h, wm_scaled=self._wm_scaled,
                 alpha_inv=self._alpha_inv)

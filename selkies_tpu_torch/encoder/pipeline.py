@@ -1,9 +1,9 @@
 """Pipelined encoders: overlap device steps, device-to-host copies and host
 assembly (counterpart of ``selkies_tpu/encoder/pipeline.py``):
 :class:`PipelinedJpegEncoder` for the JPEG-stripe profile and
-:class:`PipelinedH264Encoder` (one frame per dispatch) for the H.264
-profiles; and :class:`ThreadedEncoderAdapter`, which runs a synchronous
-``encode_frame`` (the host-entropy rungs) on a worker thread.
+:class:`PipelinedH264Encoder` (one or ``batch`` frames per dispatch) for
+the H.264 profiles; and :class:`ThreadedEncoderAdapter`, which runs a
+synchronous ``encode_frame`` (the host-entropy rungs) on a worker thread.
 
 PyTorch launches asynchronously on a CUDA stream; the only blocking points
 are host reads. This wrapper keeps several frames in flight: submit(frame
@@ -25,6 +25,17 @@ staging tickets, grouped fetches, poll/flush/close and the telemetry. Each
 profile adds its device step (``_start``), the prefix it fetches
 (``_prefix``), how an item advances (``_advance``) and how it finishes
 (``_finish``).
+
+Frames come as host arrays, which ride a pinned staging ring, or as
+tensors already on the encoder's device (``DeviceScrollSource``, a
+capture that writes to the card), which skip it. Such a tensor was
+written on its maker's stream: the encoders' ``adopt`` makes the encoder
+stream wait for that stream and marks the tensor's memory in use there.
+It is called once, in the thread that made the frame, by the public
+entry point the frame leaves its caller through (``submit``,
+``try_submit``, ``submit_batch``; the async driver's and the adapter's
+``try_submit``/``submit``); the paths behind them take the tensor as it
+is.
 """
 
 from __future__ import annotations
@@ -43,6 +54,10 @@ from .jpeg import META_WORDS_PER_STRIPE, JpegStripeEncoder, StripeOutput, split_
 from .staging import HostCopy, StagingRing, StagingTicket
 
 logger = logging.getLogger("selkies_tpu_torch.encoder.pipeline")
+
+#: the clock of the batch deadline (a name of its own, so a test can set
+#: the time instead of sleeping)
+_now = time.monotonic
 
 
 def _p50(samples) -> float:
@@ -94,6 +109,11 @@ class _Pipeline:
         """The host array staged for one frame."""
         return np.asarray(frame, dtype=np.uint8)
 
+    @property
+    def n_held(self) -> int:
+        """Frames accepted but not yet dispatched (a forming batch)."""
+        return 0
+
     def _start(self, staged, ticket):
         """Run the device step on the staged frame; return its item (seq
         ``self._seq``), queued in ``_unfetched`` or fetched on its own."""
@@ -130,25 +150,37 @@ class _Pipeline:
 
     def try_submit(self, frame) -> Optional[int]:
         """Dispatch one frame without ever blocking; None (frame dropped)
-        when the pipeline is full."""
+        when the pipeline is full (frames held toward a batch count)."""
         self._advance_ready()
-        if len(self._inflight) >= self.depth:
+        if len(self._inflight) + self.n_held >= self.depth:
             self.frames_dropped_total += 1
             return None
-        return self._dispatch(frame)
+        return self._submit(self.base.adopt(frame))
 
     def submit(self, frame) -> int:
         """Dispatch one frame; blocks (harvesting the oldest) if full."""
+        return self._submit(self.base.adopt(frame))
+
+    def _submit(self, frame) -> int:
+        """:meth:`submit` of a frame already handed over (the async
+        driver's thread calls it)."""
         while len(self._inflight) >= self.depth:
             self._ready.append(self._drain_one())
         return self._dispatch(frame)
 
-    def _dispatch(self, frame) -> int:
+    def _stage(self, frame, ring: StagingRing):
+        """(device tensor, ring ticket) for a frame or a stacked batch: a
+        host array rides the pinned staging ring; a tensor (already handed
+        over) skips it (ticket None)."""
         b = self.base
-        t0 = time.perf_counter()
+        if isinstance(frame, torch.Tensor):
+            return frame, None
         with b.stream_context():
-            staged, slot = self._staging.stage(self._host_frame(frame),
-                                               stream=b.stream)
+            return ring.stage(self._host_frame(frame), stream=b.stream)
+
+    def _dispatch(self, frame) -> int:
+        t0 = time.perf_counter()
+        staged, slot = self._stage(frame, self._staging)
         ticket = StagingTicket(self._staging, slot)
         try:
             item = self._start(staged, ticket)
@@ -439,25 +471,61 @@ class _H264InFlight:
 
 class PipelinedH264Encoder(_Pipeline):
     """Depth-N pipelined wrapper around :class:`~.h264.H264StripeEncoder`,
-    one frame per device dispatch, with grouped head fetches.
+    with grouped head fetches and, with ``batch`` > 1, B frames per
+    device dispatch.
 
-    Several P frames' device-CAVLC heads are concatenated on the device
-    and fetched in ONE non-blocking copy; an IDR frame fetches its exact
-    levels on its own (keyframes are rare: connect, reset, PLI). Frames
-    complete strictly in submission order: ``harvest`` advances per-stripe
-    frame numbers and damage history."""
+    Several P frames' heads are concatenated on the device and fetched in
+    ONE non-blocking copy; an IDR frame fetches its exact levels on its own
+    (keyframes are rare: connect, reset, PLI). Frames complete strictly in
+    submission order: ``harvest`` advances per-stripe frame numbers and
+    damage history.
 
-    def __init__(self, base, depth: int = 8, fetch_group: int = 4) -> None:
+    ``batch`` > 1: :meth:`submit` holds frames until ``batch`` of them
+    are there, then dispatches them in one batched step
+    (``H264StripeEncoder.dispatch_batch``), whose heads are one fetch;
+    :meth:`submit_batch` takes a stacked (B, H, W, 3) batch at once. A
+    partial batch (the caller paused for ``batch_deadline_s`` since its
+    last submit, a ``poll(flush_partial=True)``, or :meth:`flush`) goes
+    through the one-frame step frame by frame. Host frames of a batch are
+    stacked and staged in one upload (a second staging ring, for the
+    stacked shape); frame tensors on the encoder's device skip staging."""
+
+    def __init__(self, base, depth: int = 8, fetch_group: int = 4,
+                 batch: int = 1) -> None:
         super().__init__(base, depth, fetch_group)
+        self.batch = max(1, int(batch))
+        if depth < self.batch:
+            # a batch could never fill: held frames would ship one by one
+            raise ValueError(f"depth {depth} is less than batch {batch}")
+        #: a forming batch ships partial once no frame was submitted for
+        #: this long (2.5 frame times of a 60 fps batch, at least 50 ms):
+        #: the deadline is re-armed by every submit, so it detects a
+        #: paused caller, not a slow one (a stream ticking slower than
+        #: batch/deadline still fills whole batches; no frame waits longer
+        #: than ``batch`` deadlines)
+        self.batch_deadline_s = max(0.05, 2.5 * self.batch / 60.0)
+        self._batch_frames: list = []
+        self._batch_last = 0.0
+        self._staging_batch = StagingRing(
+            depth=max(2, -(-depth // self.batch) + 1), device=base.device)
+
+    @property
+    def n_held(self) -> int:
+        return len(self._batch_frames)
 
     def stats(self) -> dict:
         """Per-frame transfer/host-entropy gauges over the run so far: D2H
         counts grouped head reads, IDR level reads and the encoder's
-        undershoot/overflow re-reads."""
+        undershoot/overflow re-reads. ``frames_dropped`` counts frames
+        refused when full and the other frames of a batch whose dispatch
+        failed."""
         n = max(1, self.frames_completed)
         b = self.base
         return {
             **self._pipeline_stats(),
+            "staging_stalls": (self._staging.stalls_total
+                               + self._staging_batch.stalls_total),
+            "batch": self.batch,
             "d2h_bytes_per_frame":
                 (self.d2h_bytes_total + b.d2h_refetch_bytes_total) / n,
             "host_entropy_ms_per_frame": b.host_entropy_ms_total / n,
@@ -472,17 +540,124 @@ class PipelinedH264Encoder(_Pipeline):
     #: joins a running display)
     force_keyframe = request_keyframe
 
-    def _start(self, staged, ticket) -> _H264InFlight:
-        p = self.base.dispatch(staged, fetch=False)
+    # -- batching ------------------------------------------------------------
+
+    def _submit(self, frame) -> int:
+        """Submit one frame (dispatched at once with ``batch`` 1, else
+        held toward a batch); blocks (harvesting the oldest) if full."""
+        while len(self._inflight) + len(self._batch_frames) >= self.depth:
+            if not self._inflight:
+                self._flush_batch()
+                continue
+            self._ready.append(self._drain_one())
+        if self.batch == 1:
+            return self._dispatch(frame)
+        seq = self._seq + len(self._batch_frames)
+        self._batch_last = _now()
+        self._batch_frames.append(frame)
+        if len(self._batch_frames) >= self.batch:
+            self._flush_batch()
+        return seq
+
+    def submit_batch(self, rgbs) -> List[int]:
+        """Submit a stacked (B, H, W, 3) batch (a host array, or a tensor
+        on the encoder's device) as one dispatch; returns its seqs."""
+        rgbs = self.base.adopt(rgbs)
+        while len(self._inflight) >= self.depth:
+            self._ready.append(self._drain_one())
+        self._flush_batch()                  # frames held before it first
+        first = self._seq
+        self._dispatch_batch(rgbs)
+        return list(range(first, self._seq))
+
+    def _batch_deadline_due(self) -> bool:
+        """The caller submitted nothing for a whole deadline."""
+        return _now() - self._batch_last > self.batch_deadline_s
+
+    def _flush_batch(self) -> None:
+        """Dispatch the held frames: a whole batch as one batched step, a
+        partial one frame by frame through the one-frame step. When a
+        dispatch raises, the one exception reaches the caller and the
+        batch's other frames are counted as drops."""
+        frames, self._batch_frames = self._batch_frames, []
+        if not frames:
+            return
+        if len(frames) < self.batch:
+            for i, frame in enumerate(frames):
+                try:
+                    self._dispatch(frame)
+                except Exception:
+                    self._count_dropped(len(frames) - i - 1)
+                    self._issue_fetch()
+                    raise
+            self._issue_fetch()
+            return
+        try:
+            self._dispatch_batch(self._stack(frames))
+        except Exception:
+            self._count_dropped(len(frames) - 1)
+            raise
+
+    def _stack(self, frames):
+        """One (B, H, W, 3) batch: stacked on the host when every frame is
+        a host array (staged in one upload), else on the device."""
+        if not any(isinstance(f, torch.Tensor) for f in frames):
+            return np.stack([np.asarray(f, dtype=np.uint8) for f in frames])
+        b = self.base
+        with b.stream_context():
+            return torch.stack([f if isinstance(f, torch.Tensor)
+                                else b._upload(np.asarray(f, np.uint8))
+                                for f in frames])
+
+    def _count_dropped(self, n: int) -> None:
+        self.frames_dropped_total += max(0, n)
+
+    def _dispatch_batch(self, rgbs) -> None:
+        """One batched dispatch. The staged buffer backs every frame of
+        the batch, so its ring slot frees when the last of them is
+        harvested; the batch's heads are one fetch."""
+        t0 = time.perf_counter()
+        staged, slot = self._stage(rgbs, self._staging_batch)
+        try:
+            pendings = self.base._dispatch_batch(staged, fetch=False)
+        except Exception:
+            self._staging_batch.release(slot)
+            raise
+        ticket = StagingTicket(self._staging_batch, slot,
+                               refs=len(pendings))
+        batched = []
+        for p in pendings:
+            item = self._item(p, ticket)
+            self._seq += 1
+            self._inflight.append(item)
+            if p.batch_heads is not None:
+                batched.append(item)
+        if batched:
+            self._start_fetch(batched)       # the batch's heads: one read
+        self._issue_fetch()
+        self._record_ms(self._dispatch_ms, t0)
+        self._note_inflight()
+
+    # -- profile hooks ---------------------------------------------------------
+
+    def _item(self, p, ticket) -> _H264InFlight:
+        """The in-flight item of a dispatched frame; an IDR frame's exact
+        levels are fetched on their own, a P frame (not of a batch) joins
+        the forming fetch group."""
         item = _H264InFlight(seq=self._seq, pending=p, ticket=ticket)
         if p.is_idr:
-            self._start_fetch([item])    # its exact levels, on their own
-        else:
+            self._start_fetch([item])
+        elif p.batch_heads is None:
             self._unfetched.append(item)
         return item
 
+    def _start(self, staged, ticket) -> _H264InFlight:
+        return self._item(self.base._dispatch(staged, fetch=False), ticket)
+
     def _prefix(self, item: _H264InFlight) -> torch.Tensor:
         p = item.pending
+        if p.batch_heads is not None:
+            return p.batch_heads[p.batch_index]
         return p.flat16 if p.is_idr else p.head
 
     def _advance(self, item: _H264InFlight, block: bool) -> bool:
@@ -492,6 +667,26 @@ class PipelinedH264Encoder(_Pipeline):
 
     def _finish(self, item: _H264InFlight) -> list:
         return self.base.harvest(item.pending, host=item.host)
+
+    # -- queue -------------------------------------------------------------------
+
+    def poll(self, flush_partial: bool = True) -> List[Tuple[int, list]]:
+        """As :meth:`_Pipeline.poll`; a forming batch ships partial with
+        ``flush_partial`` or once its deadline is due."""
+        if self._batch_frames and (flush_partial
+                                   or self._batch_deadline_due()):
+            self._flush_batch()
+        return super().poll(flush_partial)
+
+    def flush(self) -> List[Tuple[int, list]]:
+        """Dispatch a forming batch, then drain the pipeline (blocking)."""
+        self._flush_batch()
+        return super().flush()
+
+    def close(self) -> None:
+        self._batch_frames.clear()
+        super().close()
+        self._staging_batch.release_all()
 
 
 class ThreadedEncoderAdapter:
@@ -503,7 +698,9 @@ class ThreadedEncoderAdapter:
 
     On the card the worker runs every call of the encoder inside its
     ``stream_context()``: PyTorch's current stream is per thread, and every
-    encoder on a card runs on the card's one encoder stream.
+    encoder on a card runs on the card's one encoder stream. ``submit``
+    hands a frame tensor over in the caller's thread; the worker encodes
+    it with the encoder's ``_encode_frame``, which takes it as it is.
 
     Capture-loop surface: ``try_submit`` / ``poll`` / ``flush`` /
     ``force_keyframe`` / ``close`` / ``join`` / ``stats`` / ``pop_trace`` /
@@ -574,7 +771,17 @@ class ThreadedEncoderAdapter:
 
     def submit(self, frame) -> Optional[int]:
         """Queue one frame whatever the queue's length (None once
-        closed)."""
+        closed). A host frame larger than the encoder is cropped to it
+        (the H.264 encoders take even dimensions, a source may not); a
+        frame tensor is handed over in the caller's thread
+        (``base.adopt``; the worker takes it as it is)."""
+        h = getattr(self.base, "height", None)
+        w = getattr(self.base, "width", None)
+        if isinstance(frame, torch.Tensor):
+            frame = self.base.adopt(frame)
+        elif (h is not None and frame.shape[0] >= h and frame.shape[1] >= w
+              and tuple(frame.shape[:2]) != (h, w)):
+            frame = frame[:h, :w]
         with self._cond:
             if self._stop:
                 return None
@@ -667,7 +874,7 @@ class ThreadedEncoderAdapter:
             t0 = time.monotonic()
             try:
                 with self.base.stream_context():
-                    res = self.base.encode_frame(frame)
+                    res = self.base._encode_frame(frame)
             except Exception as exc:     # reported by _settle
                 res = exc
             t1 = time.monotonic()

@@ -33,6 +33,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Set
@@ -90,7 +91,13 @@ def default_encoder_factory(width: int, height: int, settings: Settings,
     The ``tpu_entropy`` override picks the rung: the device rung (the
     default; for H.264 ``None`` reads ``SELKIES_TPU_H264_ENTROPY``) is the
     pipelined encoder behind the async driver, the ``host`` rung the
-    synchronous encoder behind :class:`ThreadedEncoderAdapter`."""
+    synchronous encoder behind :class:`ThreadedEncoderAdapter`.
+
+    ``SELKIES_TPU_ASYNC_BATCH`` (default 1) is the number of H.264 frames
+    per device dispatch on the device rung. Above 1 a forming batch ships
+    when it is full or when its deadline (re-armed by every frame) is due,
+    not whenever the driver's queue runs dry. JPEG and the host rungs
+    encode one frame at a time whatever it says."""
     from ..encoder.async_driver import AsyncEncodeDriver
     from ..encoder.pipeline import (PipelinedH264Encoder,
                                     PipelinedJpegEncoder,
@@ -117,8 +124,11 @@ def default_encoder_factory(width: int, height: int, settings: Settings,
         if base.entropy != "device":
             return ThreadedEncoderAdapter(base, depth=3,
                                           wire_fullframe=fullframe)
+        batch = max(1, int(os.environ.get("SELKIES_TPU_ASYNC_BATCH", "1")))
         return AsyncEncodeDriver(
-            PipelinedH264Encoder(base, depth=4, fetch_group=2),
+            PipelinedH264Encoder(base, depth=max(4, 3 * batch),
+                                 fetch_group=2, batch=batch),
+            flush_partial_when_idle=(batch == 1),
             wire_fullframe=fullframe)
     if profile != "jpeg":
         raise ValueError(f"unknown encoder profile {profile!r}")

@@ -17,11 +17,15 @@ import pytest
 import torch
 
 from selkies_tpu_torch._device import encoder_stream
-from selkies_tpu_torch.capture.synthetic import SyntheticSource
+from selkies_tpu_torch.capture.synthetic import (DeviceScrollSource,
+                                                 SyntheticSource)
 from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
 from selkies_tpu_torch.encoder.h264_device import _pack_sparse
 from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder, _recip
-from selkies_tpu_torch.encoder.pipeline import ThreadedEncoderAdapter
+from selkies_tpu_torch.encoder.async_driver import AsyncEncodeDriver
+from selkies_tpu_torch.encoder.pipeline import (PipelinedH264Encoder,
+                                                PipelinedJpegEncoder,
+                                                ThreadedEncoderAdapter)
 from selkies_tpu_torch.ops.dct_quant import (dct8_quant_zigzag,
                                              dct8_quant_zigzag_plain)
 from selkies_tpu_torch.ops.me_mc import me_mc_stripes
@@ -353,3 +357,118 @@ def test_threaded_adapter_stays_on_the_encoder_stream(cuda_device):
             torch.cuda.synchronize()
             readings.append(torch.cuda.memory_reserved())
         assert readings[-1] - readings[1] <= 64 << 20, readings
+
+
+def _annexb(out):
+    return [(s.y_start, s.is_key, s.annexb) for s in out]
+
+
+def _batched(pipe, frames, B):
+    got = {}
+    for i in range(0, len(frames), B):
+        chunk = frames[i:i + B]
+        if len(chunk) == B:
+            pipe.submit_batch(np.stack(chunk))
+        else:
+            for f in chunk:
+                pipe.submit(f)
+        got.update(pipe.flush())
+    return [_annexb(got[k]) for k in range(len(frames))]
+
+
+@pytest.mark.parametrize("entropy", ["device", "host"])
+@pytest.mark.parametrize("profile", ["x264enc-striped", "x264enc"])
+def test_batched_on_card_equals_cpu(cuda_device, profile, entropy):
+    """B = 4 frames per dispatch at 640x360 (the IDR batch, motion, static
+    frames whose paint-over falls inside a batch, more motion, a partial
+    batch): the card's Annex-B equals the CPU's, whose bytes the CPU tests
+    hold equal to the JAX package's and to one frame per dispatch."""
+    B = 4
+    src = SyntheticSource(640, 360, pattern="scroll", seed=9)
+    moving = [src.next_frame() for _ in range(B + 2)]
+    frames = moving + [moving[-1]] * (2 * B - 2) \
+        + [src.next_frame() for _ in range(2 * B - 1)]
+    geo = dict(fullframe=True) if profile == "x264enc" else \
+        dict(stripe_height=64)
+    kw = dict(paint_over_trigger_frames=B, entropy=entropy, **geo)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        pipe = PipelinedH264Encoder(H264StripeEncoder(640, 360, device=dev,
+                                                      **kw),
+                                    depth=4 * B, batch=B)
+        out[str(dev)] = _batched(pipe, frames, B)
+        assert pipe.stats()["entropy_errors"] == 0
+    assert out[str(cuda_device)] == out["cpu"]
+    assert any(s for s in out["cpu"][2 * B + 2])          # the paint-over
+
+
+def test_device_scroll_source_on_card_equals_cpu(cuda_device):
+    """Frames and batches made on the card equal those made on the CPU,
+    past the wrap-around."""
+    gpu = DeviceScrollSource(640, 64, seed=3, device=cuda_device)
+    cpu = DeviceScrollSource(640, 64, seed=3, device="cpu")
+    for _ in range(20):
+        assert torch.equal(gpu.next_frame().cpu(), cpu.next_frame())
+    for n in (5, 12):
+        b = gpu.next_batch(n)
+        assert b.device.type == "cuda"
+        assert torch.equal(b.cpu(), cpu.next_batch(n))
+
+
+@pytest.mark.parametrize("path", ["jpeg", "h264", "h264-batch", "driver"])
+def test_frame_written_on_a_side_stream(cuda_device, path):
+    """A frame made on another stream than the encoder's: the caller's
+    stream is held up (a sleep kernel) before the frame is written, the
+    caller drops the frame right after submitting it and writes a block
+    of the same size over and over on its stream. The encoder stream
+    waits for the caller's stream at the hand-over, and the frame's block
+    is not reused before the encoder has read it (record_stream), so the
+    bytes are those of the true frames, encoded on the CPU."""
+    w, h = 640, 384
+    n = 8
+    if path == "jpeg":
+        def make(dev):
+            return PipelinedJpegEncoder(JpegStripeEncoder(
+                w, h, stripe_height=64, device=dev), depth=4)
+        key = (lambda out: [(s.y_start, s.jpeg) for s in out])
+    else:
+        def make(dev):
+            return PipelinedH264Encoder(
+                H264StripeEncoder(w, h, stripe_height=64, device=dev),
+                depth=8, batch=4 if path == "h264-batch" else 1)
+        key = _annexb
+    want_pipe = make("cpu")
+    host_src = DeviceScrollSource(w, h, seed=6, device="cpu")
+    for _ in range(n):
+        want_pipe.submit(host_src.next_frame().numpy())
+    want = dict(want_pipe.flush())
+
+    pipe = make(cuda_device)
+    drv = AsyncEncodeDriver(pipe) if path == "driver" else None
+    side = torch.cuda.Stream()
+    assert side != pipe.base.stream
+    src = DeviceScrollSource(w, h, seed=6, device=cuda_device)
+    got = {}
+    with torch.cuda.stream(side):
+        for _ in range(n):
+            torch.cuda._sleep(20_000_000)
+            frame = torch.empty((h, w, 3), dtype=torch.uint8,
+                                device=cuda_device)
+            frame.copy_(src.next_frame())
+            if drv is not None:
+                assert drv.try_submit(frame) is not None
+            else:
+                pipe.submit(frame)
+            del frame
+            for _ in range(4):
+                torch.full((h, w, 3), 255, dtype=torch.uint8,
+                           device=cuda_device)
+    if drv is not None:
+        got.update(drv.flush(120.0))
+        drv.close()
+        assert drv.join(30.0)
+    else:
+        got.update(pipe.flush())
+    assert sorted(got) == list(range(n))
+    for k in range(n):
+        assert key(got[k]) == key(want[k]), f"frame {k}"

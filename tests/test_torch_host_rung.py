@@ -203,6 +203,9 @@ class _SlowBase:
             raise RuntimeError("coder fault")
         return [tag]
 
+    #: the adapter's worker encodes a frame its submit already handed over
+    _encode_frame = encode_frame
+
     def request_keyframe(self):
         self.keyframes += 1
 

@@ -298,7 +298,7 @@ def _failing_factory(w, h, settings, overrides=None, device=None):
     def dispatch_fails(frame):
         raise RuntimeError("kernel launch failed")
 
-    enc.pipe.submit = dispatch_fails
+    enc.pipe._submit = dispatch_fails      # what the driver thread calls
     return enc
 
 
@@ -428,3 +428,56 @@ def test_warm_up_encodes_the_configured_profile(monkeypatch, profile, entropy,
     assert getattr(enc, "wire_fullframe", False) == (profile == "x264enc")
     assert enc.stats()["frames"] == 2 and enc.stats()["encode_errors"] == 0
     assert enc.join(0.0)
+
+
+def test_late_viewer_of_a_jpeg_host_rung_display_gets_every_stripe():
+    """A second client joins a running JPEG display on its host rung
+    (ThreadedEncoderAdapter) once the first client's static display has
+    gone quiet (first frame and paint-over sent, damage gating sends
+    nothing more): the join's keyframe kick refreshes every stripe, so the
+    newcomer receives the whole picture.
+
+    This is where the port keeps a divergence from the JAX package: there
+    the adapter's keyframe request reaches only an encoder's
+    ``request_keyframe`` (selkies_tpu/encoder/pipeline.py:587-592), which
+    the JPEG encoder lacks, so the kick does nothing on that rung; the
+    port's adapter falls back to ``force_keyframe``."""
+
+    def host_rung(w, h, settings, overrides=None, device=None):
+        ov = dict(overrides or {}, tpu_entropy="host")
+        return tds.default_encoder_factory(w, h, settings, ov, device=device)
+
+    def static(w, h, fps, **_kw):
+        return SyntheticSource(w, h, fps, pattern="static", seed=5)
+
+    async def run():
+        server = tds.DataStreamingServer(
+            Settings(argv=[], env=dict(ENV)), encoder_factory=host_rung,
+            source_factory=static, device="cpu", host="127.0.0.1")
+        a, b = Client(), Client()
+        task_a = asyncio.create_task(server.ws_handler(a))
+        a.feed("SETTINGS," + json.dumps(SETTINGS))
+        assert await _wait(lambda: len(_frames(a)) >= 1)
+        enc = server.display_clients["primary"].encoder
+        assert type(enc).__name__ == "ThreadedEncoderAdapter"
+        seen = -1
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + 30.0
+        while loop.time() < deadline:        # quiet for a whole second
+            n = len(a.binary())
+            if n == seen:
+                break
+            seen = n
+            for fid in _frames(a):
+                a.feed(f"CLIENT_FRAME_ACK {fid}")
+            await asyncio.sleep(1.0)
+        assert len(a.binary()) == seen
+        task_b = asyncio.create_task(server.ws_handler(b))
+        assert await _wait(lambda: any(
+            sorted(y for y, _ in stripes) == [0, 64]
+            for stripes in _frames(b).values()), timeout=30.0)
+        await b.close()
+        await asyncio.wait_for(task_b, 10.0)
+        await _close(server, a, task_a)
+
+    asyncio.run(run())
