@@ -17,9 +17,14 @@ ways), the host-entropy rung of both codecs (behind the threaded
 adapter), batched H.264 dispatch (4 and BATCH frames per step through
 ``submit_batch``, frames made on the card by DeviceScrollSource, against
 one frame per step, both profiles, with each run's memory peak, and the
-host tier; the data server with SELKIES_TPU_ASYNC_BATCH=4), and the JPEG
-pipeline fed with frames
-made on the card against the same frames from the host. Launch counters,
+host tier; the data server with SELKIES_TPU_ASYNC_BATCH=4), the JPEG
+pipeline fed with frames made on the card against the same frames from
+the host, and a served x264enc-striped display walked down the
+degradation ladder and back up by injected faults, then restarted by its
+watchdog (``server_faults``; each unfaulted served phase must end at the
+device rung with no failure and no restart, so a kernel that fails to
+build or launch fails the script instead of turning into a stream from a
+lower rung). Launch counters,
 set to 0 before each path and read after it,
 show that the path ran its kernel. Each timed device-rung encoder run is
 made twice: once keeping nothing (its rates are the ones reported) and
@@ -54,8 +59,8 @@ the reserved memory stops growing.
 
 It prints one JSON object per line (setup, kernels, encoder, h264_encoder,
 h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
-h264_batch, server_h264_batch, jpeg_device_frames, encoder_churn,
-h264_cross, profile, profile_h264, profile_fullframe),
+h264_batch, server_h264_batch, server_faults, jpeg_device_frames,
+encoder_churn, h264_cross, profile, profile_h264, profile_fullframe),
 the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits
@@ -709,35 +714,9 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
     x264enc), each ACKed. ``batch`` > 1 serves with
     SELKIES_TPU_ASYNC_BATCH=batch (phase ``<name>_batch``)."""
     from selkies_tpu_torch.protocol.wire import unpack_binary
+    from selkies_tpu_torch.robustness import InProcessClient
     from selkies_tpu_torch.server.data_server import DataStreamingServer
     from selkies_tpu_torch.settings import Settings
-
-    class Client:
-        def __init__(self):
-            self.sent = []
-            self.closed = False
-            self.q = asyncio.Queue()
-
-        async def send(self, m):
-            self.sent.append(m)
-
-        def send_nowait(self, m):
-            if not self.closed:
-                self.sent.append(m)
-
-        async def close(self):
-            if not self.closed:
-                self.closed = True
-                self.q.put_nowait(None)
-
-        def __aiter__(self):
-            return self
-
-        async def __anext__(self):
-            m = await self.q.get()
-            if m is None:
-                raise StopAsyncIteration
-            return m
 
     name, wire_type = SERVER_PHASES[profile]
     if batch > 1:
@@ -747,9 +726,9 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
         settings = Settings(argv=[], env={"SELKIES_PORT": "0",
                                           "SELKIES_ENCODER": profile})
         server = DataStreamingServer(settings, device=DEVICE)
-        ws = Client()
+        ws = InProcessClient()
         task = asyncio.create_task(server.ws_handler(ws))
-        ws.q.put_nowait("SETTINGS," + json.dumps({
+        ws.feed("SETTINGS," + json.dumps({
             "displayId": "primary", "initialClientWidth": W,
             "initialClientHeight": H, "framerate": 60}))
         acked, seen, stripes, nbytes = set(), 0, 0, 0
@@ -774,10 +753,11 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
                         if first_frame_s is None:
                             first_frame_s = time.monotonic() - t0
                         acked.add(f.frame_id)
-                        ws.q.put_nowait(f"CLIENT_FRAME_ACK {f.frame_id}")
+                        ws.feed(f"CLIENT_FRAME_ACK {f.frame_id}")
             seen = len(ws.sent)
         await asyncio.sleep(0.2)
         st = server.display_clients["primary"]
+        sup = st.supervisor.stats()
         result = {
             "phase": name, "profile": profile, "wire_type": wire_type,
             "width": W, "height": H,
@@ -788,6 +768,10 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
             "send_enabled": st.bp.send_enabled,
             "encoder_stats": (st.encoder.stats() if st.encoder is not None
                               else None),
+            "ladder": st.ladder.state(),
+            "supervisor": {k: sup[k] for k in (
+                "state", "restarts_total", "failures_total",
+                "watchdog_restarts_total")},
             "first_frame_s": first_frame_s,
             "frames_per_s_after_first": (
                 (len(acked) - 1) / (time.monotonic() - t0 - first_frame_s - 0.2)
@@ -811,7 +795,248 @@ def phase_server(profile: str = "jpeg", min_frames: int = 30,
           f"server encoder errors: {es}")
     check(batch == 1 or es.get("batch") == batch,
           f"server encoder not batched: {es}")
+    # no fault was armed: a kernel that fails to build or launch must fail
+    # here, not turn into a stream from a lower rung
+    lad, sup = res["ladder"], res["supervisor"]
+    check(lad["rung"] == "device" and lad["failures_total"] == 0
+          and not lad["transitions"],
+          f"{name}: the display left the device rung: {lad}")
+    check(sup["restarts_total"] == 0 and sup["failures_total"] == 0
+          and sup["state"] == "running",
+          f"{name}: the display's capture loop restarted: {sup}")
     return res
+
+
+#: server_faults: the ladder's threshold and probe window, the watchdog in
+#: frame intervals (0.5 s at 60 fps) and a restart budget the phase cannot
+#: exhaust; each stage waits for FAULT_STAGE_FRAMES frames at its new rung
+FAULT_ENV = {"SELKIES_LADDER_FAIL_THRESHOLD": "3",
+             "SELKIES_LADDER_PROBE_MS": "4000",
+             "SELKIES_WATCHDOG_FRAMES": "30",
+             "SELKIES_SUPERVISOR_MAX_RESTARTS": "50"}
+#: seconds each injected fetch hang lasts: past the 0.5 s watchdog, short of
+#: the 30 s wedge deadline, and short enough that a driver thread asleep in
+#: one ends well before the phase does
+FAULT_HANG_S = 3
+FAULT_STAGE_FRAMES = 10
+FAULT_TIMEOUT_S = 120.0
+LADDER_WALK = ["device->host", "host->jpeg", "jpeg->host", "host->device"]
+
+
+def phase_server_faults():
+    """x264enc-striped at W x H, 60 fps, served through ws_handler with
+    every frame ACKed, walked down and back up the degradation ladder by
+    injected faults, one stage at a time:
+
+    1. ``encode.raise*3``: device -> host (0x04 stripes; me_mc on the card,
+       entropy on the host);
+    2. ``encode.raise*3``: host -> jpeg (0x03 stripes; dct8 on the card);
+    3. a clean window: the ladder probes up to host, then to device;
+    4. ``fetch.hang*2=FAULT_HANG_S``: the loop's fetch site and the driver
+       thread's harvest both check the point; the driver takes at most one
+       (it sleeps in it), so at least one lands in the capture loop, whose
+       watchdog restarts the pipeline: a stall, not a failure.
+
+    Each stage waits for FAULT_STAGE_FRAMES frames at its new rung and
+    reports the time from arming (from the start of the window, for the
+    probes) to the first. A frame is at the rung of the last
+    ``system_health`` message before it; the first frame after every
+    ``PIPELINE_RESETTING`` must be an IDR (0x04) or a JPEG. Kernel launches
+    count at the rung the display is at when the script reads the counters
+    (every 5 ms): a frame a closing encoder finishes after a rung change
+    counts at the new rung. Returns the phase's line and, by rung, the
+    launches of each kernel."""
+    import gc
+    import threading
+
+    import torch
+
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+    from selkies_tpu_torch.protocol.wire import unpack_binary
+    from selkies_tpu_torch.robustness import InProcessClient
+    from selkies_tpu_torch.server.data_server import DataStreamingServer
+    from selkies_tpu_torch.settings import Settings
+
+    def reserved_mb():
+        if DEVICE != "cuda":
+            return 0
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_reserved() >> 20
+
+    threads_before = {t.ident for t in threading.enumerate()}
+    mb_before = reserved_mb()
+    per_rung = {r: {"frames": 0, "stripes": 0, "wire_types": set(),
+                    "pipelines": 0, "me_mc": 0, "dct8_quant_zigzag": 0}
+                for r in ("device", "host", "jpeg")}
+
+    async def run():
+        server = DataStreamingServer(
+            Settings(argv=[], env=dict(FAULT_ENV, SELKIES_PORT="0",
+                                       SELKIES_ENCODER="x264enc-striped")),
+            device=DEVICE)
+        ws = InProcessClient()
+        task = asyncio.create_task(server.ws_handler(ws))
+        ws.feed("SETTINGS," + json.dumps({
+            "displayId": "primary", "initialClientWidth": W,
+            "initialClientHeight": H, "framerate": 60}))
+        seen = {"n": 0, "rung": "device", "fresh": False, "id": None,
+                "launches": (me_mc_stripes.launches,
+                             dct8_quant_zigzag.launches),
+                "watchdogs": 0, "watchdog_at": None}
+        frames = []                 # (time seen, rung) of each frame
+
+        def pump():
+            st = server.display_clients.get("primary")
+            now = (me_mc_stripes.launches, dct8_quant_zigzag.launches)
+            if st is not None:
+                r = per_rung[st.ladder.rung]
+                r["me_mc"] += now[0] - seen["launches"][0]
+                r["dct8_quant_zigzag"] += now[1] - seen["launches"][1]
+                if (st.supervisor is not None and
+                        st.supervisor.watchdog_restarts_total
+                        > seen["watchdogs"]):
+                    seen["watchdogs"] = st.supervisor.watchdog_restarts_total
+                    seen["watchdog_at"] = time.monotonic()
+            seen["launches"] = now
+            t = time.monotonic()
+            for m in ws.sent[seen["n"]:]:
+                if isinstance(m, str):
+                    if m.startswith("PIPELINE_RESETTING"):
+                        seen["fresh"], seen["id"] = True, None
+                    elif '"system_health"' in m:
+                        d = json.loads(m)["displays"].get("primary")
+                        if d is not None:
+                            seen["rung"] = d["rung"]
+                    continue
+                m = bytes(m)
+                f = unpack_binary(m)
+                r = per_rung[seen["rung"]]
+                r["stripes"] += 1
+                r["wire_types"].add(m[0])
+                if m[0] == 0x04:
+                    check(f.payload[:4] == b"\x00\x00\x00\x01",
+                          "server_faults: bad 0x04 stripe")
+                else:
+                    check(m[0] == 0x03 and f.payload[:2] == b"\xff\xd8",
+                          f"server_faults: bad message of type {m[0]}")
+                if f.frame_id == seen["id"]:
+                    continue            # another stripe of the same frame
+                if seen["fresh"]:
+                    check(m[0] == 0x03 or m[1] == 1,
+                          f"server_faults: first frame of a pipeline at "
+                          f"rung {seen['rung']} is not an IDR")
+                    seen["fresh"] = False
+                    r["pipelines"] += 1
+                seen["id"] = f.frame_id
+                r["frames"] += 1
+                frames.append((t, seen["rung"]))
+                ws.feed(f"CLIENT_FRAME_ACK {f.frame_id}")
+            seen["n"] = len(ws.sent)
+
+        async def wait_for(pred, what):
+            t0 = time.monotonic()
+            while not pred():
+                check(time.monotonic() - t0 < FAULT_TIMEOUT_S,
+                      f"server_faults: timed out waiting for {what}")
+                await asyncio.sleep(0.005)
+                pump()
+
+        def frames_at(rung, since):
+            return [t for t, r in frames if r == rung and t >= since]
+
+        await wait_for(lambda: len(frames_at("device", 0.0))
+                       >= FAULT_STAGE_FRAMES, "frames at rung device")
+        st = server.display_clients["primary"]
+        sup = st.supervisor
+        stages = []
+        for name, spec, want in (
+                ("encode.raise:device->host", "encode.raise*3",
+                 ["device->host"]),
+                ("encode.raise:host->jpeg", "encode.raise*3",
+                 ["host->jpeg"]),
+                ("probe:jpeg->host", None, ["jpeg->host"]),
+                ("probe:host->device", None, ["host->device"])):
+            n0 = len(st.ladder.transitions)
+            rung = want[0].split("->")[1]
+            t_arm = time.monotonic()
+            if spec is not None:
+                server.faults.arm_spec(spec)
+            await wait_for(
+                lambda: st.ladder.transitions[n0:n0 + 1] == want
+                and len(frames_at(rung, t_arm)) >= FAULT_STAGE_FRAMES,
+                f"{name}: {FAULT_STAGE_FRAMES} frames at rung {rung}")
+            stages.append({"stage": name, "armed": spec, "rung": rung,
+                           "first_frame_s": frames_at(rung, t_arm)[0] - t_arm,
+                           "failures_total": sup.failures_total,
+                           "ladder_failures_total": st.ladder.failures_total})
+        # 4. the watchdog: a stalled fetch
+        failures0, ladder0 = sup.failures_total, st.ladder.failures_total
+        watchdogs0 = sup.watchdog_restarts_total
+        t_arm = time.monotonic()
+        server.faults.arm_spec(f"fetch.hang*2={FAULT_HANG_S}")
+        await wait_for(
+            lambda: seen["watchdogs"] > watchdogs0
+            and server.faults.fired.get("fetch.hang", 0) == 2
+            and len(frames_at("device", max(seen["watchdog_at"], t_arm)))
+            >= FAULT_STAGE_FRAMES,
+            "frames after the watchdog restart")
+        stages.append({
+            "stage": "fetch.hang:watchdog",
+            "armed": f"fetch.hang*2={FAULT_HANG_S}", "rung": "device",
+            "first_frame_s": frames_at("device", seen["watchdog_at"])[0]
+            - t_arm,
+            "watchdog_restarts": sup.watchdog_restarts_total - watchdogs0,
+            "failures_added": sup.failures_total - failures0,
+            "ladder_failures_added": st.ladder.failures_total - ladder0})
+        out = {"phase": "server_faults", "profile": "x264enc-striped",
+               "width": W, "height": H, "fps": 60,
+               "settings": FAULT_ENV, "hang_s": FAULT_HANG_S,
+               "transitions": list(st.ladder.transitions),
+               "rung": st.ladder.rung, "ladder": st.ladder.state(),
+               "supervisor": sup.stats(),
+               "faults_fired": dict(server.faults.fired),
+               "stages": stages,
+               "health": json.loads(server._health_payload())["displays"][
+                   "primary"]}
+        await ws.close()
+        await asyncio.wait_for(task, 30.0)
+        await server.stop()
+        pump()
+        return out
+
+    out = asyncio.run(run())
+    out["per_rung"] = {r: dict(v, wire_types=sorted(v["wire_types"]))
+                       for r, v in per_rung.items()}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before and t.is_alive()
+            and t.name.startswith("torchenc")]
+    out["threads_left"] = left
+    mb_after = reserved_mb()
+    out["reserved_mb"] = {"before": mb_before, "after": mb_after,
+                          "growth": mb_after - mb_before}
+    hang = out["stages"][-1]
+    check(out["transitions"] == LADDER_WALK and out["rung"] == "device",
+          f"server_faults: ladder walked {out['transitions']}")
+    check(hang["watchdog_restarts"] >= 1 and hang["failures_added"] == 0
+          and hang["ladder_failures_added"] == 0,
+          f"server_faults: the fetch hang gave {hang}")
+    check(out["supervisor"]["failures_total"] == 6
+          and out["supervisor"]["state"] != "failed",
+          f"server_faults: supervisor {out['supervisor']}")
+    pr = out["per_rung"]
+    check(pr["device"]["wire_types"] == [0x04]
+          and pr["host"]["wire_types"] == [0x04]
+          and pr["jpeg"]["wire_types"] == [0x03],
+          f"server_faults: wire types by rung {pr}")
+    check(pr["device"]["me_mc"] > 0 and pr["host"]["me_mc"] > 0
+          and pr["jpeg"]["dct8_quant_zigzag"] > 0,
+          f"server_faults: kernel launches by rung {pr}")
+    check(not left, f"server_faults: threads still running: {left}")
+    check(out["reserved_mb"]["growth"] <= CHURN_GROWTH_MB,
+          f"server_faults: reserved memory grew {out['reserved_mb']}")
+    return out, per_rung
 
 
 # ---------------------------------------------------------------------------
@@ -1829,6 +2054,17 @@ def main() -> int:
         check_host_rung(profile, out, runs)
         host[profile] = out
 
+    # the degradation ladder under injected faults: counts from 0 just
+    # before the phase, read by rung while it runs
+    _settle("server_faults")
+    dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    faults, by_rung = phase_server_faults()
+    for rung in ("device", "host"):
+        kern_me["launches_by_path"][f"x264enc-striped/ladder:{rung}"] = \
+            by_rung[rung]["me_mc"]
+    kern["launches_by_path"]["x264enc-striped/ladder:jpeg"] = \
+        by_rung["jpeg"]["dct8_quant_zigzag"]
+
     _settle("encoder_churn")
     churn = phase_encoder_churn()
     enc.update(phase_small_reference())
@@ -1852,6 +2088,7 @@ def main() -> int:
     emit(server_full)
     emit(h264_batch)
     emit(server_batch)
+    emit(faults)
     emit(jpeg_dev)
     emit(churn)
     emit(cross)

@@ -31,6 +31,10 @@ from typing import Callable, List, Optional, Tuple
 
 logger = logging.getLogger("selkies_tpu_torch.encoder.async_driver")
 
+#: fault point checked at the harvest site (``robustness.faults``): an
+#: armed ``fetch.hang`` wedges the driver thread as a dead D2H copy would
+FETCH_HANG_POINT = "fetch.hang"
+
 
 class AsyncEncodeDriver:
     """Non-blocking facade + driver thread around a pipelined encoder.
@@ -63,8 +67,10 @@ class AsyncEncodeDriver:
         self.wire_fullframe = bool(wire_fullframe)
         #: called with the exception for every frame lost to a
         #: device/entropy error (driver thread context); the server's
-        #: capture loop ends the display on it
+        #: capture loop counts it on the display's degradation ladder
         self.on_error: Optional[Callable[[BaseException], None]] = None
+        #: the server's FaultInjector (None: no fault points checked)
+        self.faults = None
 
         self._cond = threading.Condition()
         self._in_q: deque = deque()          # (driver_seq, frame)
@@ -207,6 +213,8 @@ class AsyncEncodeDriver:
 
     def _harvest(self, flush_partial: bool) -> bool:
         """One non-blocking harvest pass; True if anything completed."""
+        if self.faults is not None:
+            self.faults.maybe_hang_sync(FETCH_HANG_POINT)
         results = self.pipe.poll(flush_partial=flush_partial)
         self._emit(results)
         return bool(results)

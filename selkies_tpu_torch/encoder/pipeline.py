@@ -714,8 +714,8 @@ class ThreadedEncoderAdapter:
         #: ship as one 0x00 full-frame packet instead of 0x04 stripes
         self.wire_fullframe = bool(wire_fullframe)
         #: called with the exception for every errored frame (in the thread
-        #: that polls or flushes); the server's capture loop ends the
-        #: display on it
+        #: that polls or flushes); the server's capture loop counts it on
+        #: the display's degradation ladder
         self.on_error = None
         self._cond = threading.Condition()
         self._in_q: deque = deque()        # (seq, frame) not yet started

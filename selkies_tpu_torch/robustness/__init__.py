@@ -1,0 +1,27 @@
+"""Session robustness: supervision, graceful degradation, fault injection
+(the port's copy of the parts of ``selkies_tpu/robustness/`` the port's
+server runs).
+
+* :class:`Supervisor` — bounded-backoff restarts with a restart budget and
+  a frame-deadline watchdog, wrapped around each display's capture and
+  backpressure loops;
+* :class:`DegradationLadder` — device → host → jpeg encoder rungs, stepped
+  down on repeated :class:`EncoderFault` and probed back up after a clean
+  window; every rung runs its kernels on the card;
+* :class:`FaultInjector` — named fault points checked at the real call
+  sites, armed via ``SELKIES_TPU_FAULTS`` so tests prove recovery
+  end-to-end instead of assuming it;
+* :class:`InProcessClient` — the in-process websocket stand-in.
+"""
+
+from .faults import DEFAULT_HANG_S, POINTS, FaultInjected, FaultInjector
+from .ladder import RUNGS, DegradationLadder, EncoderFault
+from .supervisor import (BACKOFF, FAILED, IDLE, RUNNING, STOPPED, Supervisor,
+                         backoff_delay)
+from .testing import InProcessClient
+
+__all__ = [
+    "BACKOFF", "DEFAULT_HANG_S", "DegradationLadder", "EncoderFault",
+    "FAILED", "FaultInjected", "FaultInjector", "IDLE", "InProcessClient",
+    "POINTS", "RUNGS", "RUNNING", "STOPPED", "Supervisor", "backoff_delay",
+]

@@ -8,21 +8,28 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What this slice keeps:
   frames → the encoder's ``try_submit``/``poll`` → 0x03 JPEG stripes, 0x04
   H.264 stripes for ``x264enc-striped`` or 0x00 full frames for
   ``x264enc``, fanned out to the display's viewers;
+* supervision (``robustness/``): each display's capture and backpressure
+  loops run under a :class:`~..robustness.Supervisor` (bounded-backoff
+  restarts, a restart budget over a sliding window, a frame-deadline
+  watchdog); encoder failures step the display's
+  :class:`~..robustness.DegradationLadder` (device → host → jpeg, every
+  rung on the card) and a clean window probes it back up; a display whose
+  budget runs out fails alone and is torn down; the ``system_health``
+  feed tells the clients; fault points (``SELKIES_TPU_FAULTS``) are
+  checked at the JAX server's call sites;
 * ``CLIENT_FRAME_ACK`` and ``_f`` into the display's
   :class:`~.backpressure.BackpressureState`, re-evaluated every
   ``CHECK_INTERVAL_S``; ``START_VIDEO``/``STOP_VIDEO``;
 * close.
 
-Uploads, input, resize/reconfigure, the mesh, health/stats, supervisors,
-the degradation ladder and the flight recorder are not ported yet. There
-is no fallback either: an unknown encoder profile raises, and a
-capture-loop error (a frame lost to the encoder included) ends the server
-(:meth:`run_server` raises it) rather than leaving a display that streams
-nothing.
+Uploads, input, resize/reconfigure, the mesh, stats, metrics and the
+flight recorder are not ported yet. An unknown encoder profile raises.
 
 Concurrency model (same invariant as the JAX server): one asyncio loop
-owns all mutable state; the encoder is driven with non-blocking submits and
-polls (``AsyncEncodeDriver``), so the loop never waits on the device.
+owns all mutable state — the ladder included: errors that the encoder's
+threads report through ``on_error`` are queued and counted by the capture
+loop; the encoder is driven with non-blocking submits and polls
+(``AsyncEncodeDriver``), so the loop never waits on the device.
 ``websockets`` is imported only in :meth:`DataStreamingServer.run_server`,
 so ``ws_handler`` can be driven in process by any object with async
 ``send``/``close``, async iteration and (optionally) ``send_nowait``.
@@ -35,16 +42,20 @@ import json
 import logging
 import os
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Set
+from typing import Any, Callable, Dict, Optional, Set, Tuple
 
 from ..protocol.wire import (
     FrameId,
     pack_full_frame,
     pack_h264_stripe,
     pack_jpeg_stripe,
+    pack_system_health,
     parse_text_message,
 )
+from ..robustness import (FAILED, DegradationLadder, EncoderFault,
+                          FaultInjector, Supervisor, backoff_delay)
 from ..settings import SETTING_DEFINITIONS, Settings
 from .backpressure import CHECK_INTERVAL_S, BackpressureState
 
@@ -152,6 +163,20 @@ def default_encoder_factory(width: int, height: int, settings: Settings,
     return AsyncEncodeDriver(PipelinedJpegEncoder(base, depth=4, fetch_group=2))
 
 
+def rung_overrides(overrides: Dict[str, Any], rung: str) -> Dict[str, Any]:
+    """The factory overrides of a degradation-ladder rung: ``host`` codes
+    the entropy on the host, ``jpeg`` is the JPEG profile with host
+    entropy; ``device`` is the display's own. Every rung runs its kernels
+    on the card."""
+    ov = dict(overrides)
+    if rung == "host":
+        ov["tpu_entropy"] = "host"
+    elif rung == "jpeg":
+        ov["encoder"] = "jpeg"
+        ov["tpu_entropy"] = "host"
+    return ov
+
+
 def default_source_factory(width: int, height: int, fps: float):
     """Synthetic desktop capture (X11 capture is not ported yet)."""
     from ..capture.synthetic import SyntheticSource
@@ -184,16 +209,43 @@ class DisplayState:
     lock: asyncio.Lock = field(default_factory=asyncio.Lock)
     capture_task: Optional[asyncio.Task] = None
     backpressure_task: Optional[asyncio.Task] = None
+    #: supervisors owning the two loops above: crash restarts with bounded
+    #: backoff, frame-deadline watchdog, restart budget
+    supervisor: Optional[Supervisor] = None
+    bp_supervisor: Optional[Supervisor] = None
+    #: encoder degradation state (device -> host -> jpeg); persists across
+    #: supervised restarts — it is display health, not pipeline state
+    ladder: DegradationLadder = field(default_factory=DegradationLadder)
+    #: sticky terminal marker: the capture supervisor exhausted its restart
+    #: budget and the pipeline was torn down (cleared by an explicit
+    #: START_VIDEO or SETTINGS restart)
+    failed: bool = False
+    #: wedge faults at the bottom rung (nowhere left to degrade): each
+    #: restart of a hung encoder can abandon a blocked thread, so these are
+    #: bounded — a few strikes and the display goes terminal
+    wedge_faults: int = 0
     video_active: bool = True
     #: clamped per-client setting overrides from the SETTINGS handshake
     overrides: Dict[str, Any] = field(default_factory=dict)
-    #: live encoder of the running capture loop (keyframe kicks)
+    #: live encoder of the running capture loop (keyframe kicks, health)
     encoder: Any = None
     #: frames sent since the capture loop (re)started
     frames_sent: int = 0
+    #: (width, height) and (overrides, framerate) the running pipeline was
+    #: started with: a SETTINGS from its owner that changes neither keeps
+    #: it streaming
+    running_geom: Optional[Tuple[int, int]] = None
+    running_config: Optional[Tuple[Dict[str, Any], float]] = None
 
 
 class DataStreamingServer:
+    #: bind-retry policy: capped exponential backoff with jitter, then a
+    #: hard error — an occupied port fails loudly instead of retrying
+    #: forever (class attributes so tests can shrink them)
+    BIND_MAX_ATTEMPTS = 8
+    BIND_BASE_DELAY_S = 0.5
+    BIND_MAX_DELAY_S = 10.0
+
     def __init__(
         self,
         settings: Settings,
@@ -212,39 +264,59 @@ class DataStreamingServer:
         self.clients: Set[Any] = set()
         self.display_clients: Dict[str, DisplayState] = {}
         self._stop_event: Optional[asyncio.Event] = None
-        #: closed encoders whose driver threads stop() waits for
+        #: closed encoders whose threads may still run; pruned at every
+        #: capture-loop start, joined by stop()
         self._retired: list = []
-        #: the error that ended a capture loop; run_server raises it
-        self.fatal: Optional[BaseException] = None
+        #: fault-injection registry, armed from the tpu_faults setting
+        #: (SELKIES_TPU_FAULTS) and checked at the real call sites
+        self.faults = FaultInjector(str(settings.tpu_faults or ""))
+        #: fire-and-forget helpers (ws.drop closes, failed-display
+        #: teardown), referenced so they are not collected mid-flight
+        self._bg_tasks: Set[asyncio.Task] = set()
 
     # ------------------------------------------------------------------
     # lifecycle
 
     async def run_server(self) -> None:
-        """Serve until :meth:`stop`, or until an encoder error, which it
-        raises."""
+        """Serve until :meth:`stop`. A failed bind is retried with capped
+        exponential backoff and raised after ``BIND_MAX_ATTEMPTS``. No
+        capture or encoder error ends it: the display's supervisor
+        restarts, degrades or fails that display alone."""
         import websockets.asyncio.server as ws_server
 
         self._stop_event = asyncio.Event()
+        bind_attempts = 0
         cap_mb = int(getattr(self.settings, "max_ws_message_mb", 0))
         max_size = cap_mb * 1024 * 1024 if cap_mb > 0 else None
-        async with ws_server.serve(self.ws_handler, self.host, self.port,
-                                   compression=None, max_size=max_size):
-            logger.info("data server listening on %s:%d", self.host, self.port)
-            await self._stop_event.wait()
-        if self.fatal is not None:
-            raise self.fatal
+        while not self._stop_event.is_set():
+            try:
+                async with ws_server.serve(self.ws_handler, self.host,
+                                           self.port, compression=None,
+                                           max_size=max_size):
+                    bind_attempts = 0
+                    logger.info("data server listening on %s:%d",
+                                self.host, self.port)
+                    await self._stop_event.wait()
+            except OSError as e:
+                bind_attempts += 1
+                if bind_attempts >= self.BIND_MAX_ATTEMPTS:
+                    raise RuntimeError(
+                        f"data server could not bind {self.host}:{self.port}"
+                        f" after {bind_attempts} attempts: {e}") from e
+                delay = backoff_delay(bind_attempts, self.BIND_BASE_DELAY_S,
+                                      self.BIND_MAX_DELAY_S, jitter=0.25)
+                logger.error("server bind failed (%s); retry %d/%d in %.1fs",
+                             e, bind_attempts, self.BIND_MAX_ATTEMPTS, delay)
+                await asyncio.sleep(delay)
 
     async def stop(self) -> None:
         for st in list(self.display_clients.values()):
             await self._stop_display(st)
-        # closed encoders' driver threads finish their last device call
-        # off the loop; shutdown waits for them (bounded)
+        # closed encoders' threads finish their last device call off the
+        # loop; shutdown waits for them (bounded)
         retired, self._retired = self._retired, []
         for enc in retired:
-            join = getattr(enc, "join", None)
-            if join is not None:
-                await asyncio.to_thread(join, 10.0)
+            await asyncio.to_thread(enc.join, 10.0)
         if self._stop_event:
             self._stop_event.set()
 
@@ -359,7 +431,8 @@ class DataStreamingServer:
                 logger.warning("ignoring bad client setting %s=%r", key, value)
 
         st = self.display_clients.get(display_id)
-        if st is not None and st.ws is not None and st.ws is not websocket:
+        same_owner = st is not None and st.ws is websocket
+        if st is not None and st.ws is not None and not same_owner:
             try:
                 await st.ws.send("KILL Display taken over by another client.")
                 await st.ws.close()
@@ -377,38 +450,99 @@ class DataStreamingServer:
         if "framerate" in applied:
             st.bp.framerate = float(applied["framerate"])
         logger.info("client settings for %s: %s", display_id, applied)
-        # settings define the pipeline: (re)start it with them
-        await self._stop_display(st)
-        if st.video_active:
-            await self._start_display(st)
+        async with st.lock:
+            running = (st.capture_task is not None
+                       and not st.capture_task.done())
+            if (same_owner and running
+                    and st.running_geom == (st.width, st.height)
+                    and st.running_config == (st.overrides,
+                                              st.bp.framerate)):
+                return          # started with these settings: keep it
+            # settings define the pipeline: (re)start it with them
+            await self._stop_display_locked(st)
+            if st.video_active:
+                await self._start_display_locked(st)
 
     # ------------------------------------------------------------------
     # capture / encode pipeline per display
 
     async def _start_display(self, st: DisplayState) -> None:
         async with st.lock:
-            if self.display_clients.get(st.display_id) is not st:
-                return          # deregistered while this start was pending
-            if st.capture_task and not st.capture_task.done():
-                return
-            st.capture_task = asyncio.create_task(self._capture_loop(st))
-            st.backpressure_task = asyncio.create_task(
-                self._backpressure_loop(st))
+            await self._start_display_locked(st)
 
     async def _stop_display(self, st: DisplayState) -> None:
         async with st.lock:
-            for attr in ("capture_task", "backpressure_task"):
-                task = getattr(st, attr)
-                if task:
-                    task.cancel()        # no-op on a task that has ended
-                    try:
-                        await task
-                    except asyncio.CancelledError:
-                        pass
-                    except Exception:
-                        logger.exception("%s of %s raised",
-                                         attr, st.display_id)
-                setattr(st, attr, None)
+            await self._stop_display_locked(st)
+
+    async def _start_display_locked(self, st: DisplayState) -> None:
+        if self.display_clients.get(st.display_id) is not st:
+            return          # deregistered while this start was pending
+        if st.capture_task and not st.capture_task.done():
+            return
+        # a failed supervisor may leave a live backpressure task behind;
+        # tear both down so restarts never leak a ticking loop
+        await self._stop_display_locked(st)
+        st.failed = False          # an explicit restart clears the marker
+        st.wedge_faults = 0
+        s = self.settings
+        st.ladder.fail_threshold = max(1, int(s.ladder_fail_threshold))
+        st.ladder.probe_after_s = int(s.ladder_probe_ms) / 1000.0
+        fps = st.bp.framerate or 60.0
+        wd_frames = int(s.watchdog_frames)
+        watchdog_s = (max(0.5, wd_frames / max(1.0, fps))
+                      if wd_frames > 0 else None)
+        max_restarts = int(s.supervisor_max_restarts)
+        window_s = float(int(s.supervisor_restart_window_s))
+
+        def on_event(kind: str, info: Any) -> None:
+            self._on_supervisor_event(st, kind, info)
+
+        st.supervisor = Supervisor(
+            f"capture:{st.display_id}", lambda: self._capture_loop(st),
+            max_restarts=max_restarts, restart_window_s=window_s,
+            watchdog_timeout_s=watchdog_s, on_event=on_event)
+        st.bp_supervisor = Supervisor(
+            f"backpressure:{st.display_id}",
+            lambda: self._backpressure_loop(st),
+            max_restarts=max_restarts, restart_window_s=window_s,
+            on_event=on_event)
+        st.capture_task = asyncio.create_task(st.supervisor.run())
+        st.backpressure_task = asyncio.create_task(st.bp_supervisor.run())
+        st.running_geom = (st.width, st.height)
+        st.running_config = (dict(st.overrides), st.bp.framerate)
+
+    async def _stop_display_locked(self, st: DisplayState) -> None:
+        """Exception-safe teardown: cancel both tasks even if the first
+        cancellation raises, and always close the encoder."""
+        for attr in ("capture_task", "backpressure_task"):
+            task = getattr(st, attr)
+            if task and not task.done():
+                task.cancel()
+                try:
+                    await task
+                except asyncio.CancelledError:
+                    pass
+                except Exception:
+                    logger.exception("%s teardown for %s raised",
+                                     attr, st.display_id)
+            setattr(st, attr, None)
+        st.supervisor = None
+        st.bp_supervisor = None
+        st.running_geom = None
+        st.running_config = None
+        encoder, st.encoder = st.encoder, None
+        if encoder is not None:
+            self._retire(encoder)
+
+    def _retire(self, encoder) -> None:
+        """Close an encoder without blocking the loop (its thread finishes
+        the frame in hand and exits); keep it for stop() to join."""
+        try:
+            encoder.close()
+        except Exception:
+            logger.exception("encoder close raised")
+        if hasattr(encoder, "join"):
+            self._retired.append(encoder)
 
     async def _reset_frame_ids_and_notify(self, st: DisplayState) -> None:
         st.bp.reset()
@@ -418,70 +552,152 @@ class DataStreamingServer:
             _ws_broadcast(targets, message)
 
     async def _capture_loop(self, st: DisplayState) -> None:
-        """Source frames → pipelined encode → 0x03/0x04 stripe fan-out.
+        """Source frames → pipelined encode → 0x03/0x04/0x00 fan-out: one
+        supervised run (``st.supervisor`` owns the restarts).
 
-        Frame ids restart at 1 on every start, announced with
-        ``PIPELINE_RESETTING`` so the client and the backpressure gate drop
-        the old horizon. An error in the loop, a frame lost to the encoder
-        included, ends the loop and the server (:meth:`_fail`): this slice
-        has no degradation ladder."""
+        Exceptions propagate to the supervisor; encoder-path failures are
+        wrapped in :class:`EncoderFault`, so they step the degradation
+        ladder. The loop returns cleanly when the rung changed under it;
+        the supervisor then restarts it, which builds the new rung's
+        encoder (:func:`rung_overrides`). Frame ids restart
+        at 1 on every (re)start, announced with ``PIPELINE_RESETTING`` so
+        the client and the backpressure gate drop the old horizon; a new
+        encoder's first frame is a keyframe."""
+        sup = st.supervisor
+        faults = self.faults
         fps = st.bp.framerate or 60.0
+        rung = st.ladder.rung
         await self._reset_frame_ids_and_notify(st)
         st.frames_sent = 0
-        encoder = self.encoder_factory(st.width, st.height, self.settings,
-                                       dict(st.overrides), device=self.device)
-        errors: list = []
-        encoder.on_error = errors.append     # driver thread; list is atomic
+        # keep only the retired encoders whose threads still run
+        self._retired = [e for e in self._retired if not e.join(0)]
+        try:
+            encoder = self.encoder_factory(
+                st.width, st.height, self.settings,
+                rung_overrides(st.overrides, rung), device=self.device)
+        except Exception as e:
+            # a rung that cannot be built steps the ladder like any other
+            # encoder failure, instead of being retried forever
+            raise EncoderFault(f"encoder construction failed: {e!r}") from e
+        #: frames the encoder's threads lost (on_error runs in the driver
+        #: thread, or in poll for the threaded adapter); this loop counts
+        #: them on the ladder, which only the event loop touches
+        errors: deque = deque()
+        encoder.on_error = errors.append
+        if getattr(encoder, "faults", False) is None:
+            # the async driver checks fetch.hang at its own harvest site
+            encoder.faults = faults
         st.encoder = encoder
         source = None
         try:
+            sup.beat()   # encoder construction counts as progress
             source = self.source_factory(st.width, st.height, fps)
             source.start()
             frame_id = 0
             interval = 1.0 / fps
             next_tick = time.monotonic()
-            logger.info("capture loop started for %s (%dx%d@%g)",
-                        st.display_id, st.width, st.height, fps)
+            #: ticks whose harvest surfaced encoder errors without the
+            #: ladder stepping (i.e. at the bottom rung): after the
+            #: ladder's own threshold, force a supervised rebuild rather
+            #: than streaming nothing forever
+            error_ticks = 0
+            #: a pipeline that stops accepting submits and harvesting
+            #: anything is wedged even though the loop itself still ticks;
+            #: a generous deadline, so that a first-use kernel build never
+            #: reads as a wedge
+            wedge_s = None
+            if sup.watchdog_timeout_s is not None:
+                wedge_s = max(4.0 * sup.watchdog_timeout_s, 30.0)
+            accepted_at = time.monotonic()
+            logger.info("capture loop started for %s (%dx%d@%g, rung=%s)",
+                        st.display_id, st.width, st.height, fps, rung)
             while True:
-                if errors:
-                    raise RuntimeError(
-                        f"encoder of display {st.display_id} failed"
-                    ) from errors[0]
+                sup.beat()
+                faults.maybe_raise("capture.raise")
+                await faults.maybe_hang("capture.stall")
+                # clean-probe evidence for the ladder: the tick exercised
+                # the encoder (submit or delivery) and surfaced no error
+                failures_before = st.ladder.failures_total
+                progressed = False
+                accepted = True     # "no submit attempted" is not a wedge
                 if st.bp.send_enabled:
                     frame = source.next_frame()
                     if frame is not None:
-                        encoder.try_submit(frame)   # None = dropped (full)
-                for _seq, stripes in encoder.poll():
+                        try:
+                            faults.maybe_raise("encode.raise")
+                            # None = dropped (pipeline full)
+                            accepted = encoder.try_submit(frame) is not None
+                        except Exception as e:
+                            raise EncoderFault(
+                                f"encoder submit failed: {e!r}") from e
+                        progressed = True
+                await faults.maybe_hang("fetch.hang")
+                try:
+                    harvested = encoder.poll()
+                except Exception as e:
+                    raise EncoderFault(f"encoder poll failed: {e!r}") from e
+                # submit/poll can block the loop for one long stretch
+                # (a first-use build); beating after them keeps that from
+                # reading as a stall
+                sup.beat()
+                while errors:
+                    errors.popleft()
+                    st.ladder.record_failure()
+                for _seq, stripes in harvested:
                     if not stripes:
                         continue        # damage gating emitted nothing
+                    progressed = accepted = True
                     frame_id = FrameId.next(frame_id)
                     self._emit_frame(st, frame_id, stripes, encoder)
                     st.bp.on_frame_sent(frame_id)
                     st.frames_sent += 1
+                now = time.monotonic()
+                if accepted:
+                    accepted_at = now
+                elif wedge_s is not None and now - accepted_at > wedge_s:
+                    # the loop ticks, nothing moves: force_step tells the
+                    # event handler to step the ladder at once (a
+                    # consecutive count would be reset by each restart's
+                    # first accepted submit and never escalate)
+                    raise EncoderFault(
+                        f"pipeline wedged: no accepted submits or harvests "
+                        f"for {now - accepted_at:.1f}s", force_step=True)
+                if st.ladder.failures_total > failures_before:
+                    error_ticks += 1
+                    if (error_ticks >= st.ladder.fail_threshold
+                            and st.ladder.rung == rung):
+                        raise EncoderFault(
+                            f"persistent encode errors at rung {rung} "
+                            f"({error_ticks} consecutive error ticks)")
+                elif progressed:
+                    error_ticks = 0
+                    if st.ladder.record_success():
+                        logger.info("display %s probed back up to rung %s",
+                                    st.display_id, st.ladder.rung)
+                if st.ladder.rung != rung:
+                    # the rung changed under us (errors counted above, or
+                    # the probe): exit cleanly; the supervisor restarts
+                    # with the new rung's encoder
+                    self._broadcast_health()
+                    return
+                if st.ws is not None and faults.should_fire("ws.drop"):
+                    self._spawn_background(st.ws.close(),
+                                           f"ws.drop:{st.display_id}")
                 next_tick += interval
                 delay = next_tick - time.monotonic()
                 if delay < -1.0:  # fell badly behind; resynchronize
                     next_tick = time.monotonic()
                     delay = 0.0
                 await asyncio.sleep(max(0.0, delay))
-        except Exception as e:
-            self._fail(e)
-            raise
         finally:
             if source is not None:
-                source.stop()
+                try:
+                    source.stop()
+                except Exception:
+                    logger.exception("source stop for %s raised",
+                                     st.display_id)
             st.encoder = None
-            encoder.close()
-            self._retired.append(encoder)
-
-    def _fail(self, exc: BaseException) -> None:
-        """Record the first capture-loop error and stop :meth:`run_server`,
-        which raises it."""
-        logger.error("capture loop failed, stopping the server: %r", exc)
-        if self.fatal is None:
-            self.fatal = exc
-        if self._stop_event is not None:
-            self._stop_event.set()
+            self._retire(encoder)
 
     def _emit_frame(self, st: DisplayState, frame_id: int, stripes,
                     encoder) -> None:
@@ -492,6 +708,106 @@ class DataStreamingServer:
             _ws_broadcast(viewers, _pack_stripe(frame_id, s, encoder))
 
     async def _backpressure_loop(self, st: DisplayState) -> None:
+        sup = st.bp_supervisor
         while True:
             await asyncio.sleep(CHECK_INTERVAL_S)
+            sup.beat()
             st.bp.evaluate()
+
+    # ------------------------------------------------------------------
+    # supervision events + health feed
+
+    def _spawn_background(self, coro, name: str) -> None:
+        """Run a fire-and-forget coroutine with a held reference and
+        logged (not warned-at-GC) exceptions."""
+        async def runner():
+            try:
+                await coro
+            except Exception:
+                logger.debug("background task %s failed", name,
+                             exc_info=True)
+        task = asyncio.create_task(runner())
+        self._bg_tasks.add(task)
+        task.add_done_callback(self._bg_tasks.discard)
+
+    def _on_supervisor_event(self, st: DisplayState, kind: str,
+                             info: Any) -> None:
+        """Ladder and health fan-out for supervisor lifecycle events (runs
+        on the event loop; must never raise)."""
+        if kind == "failure" and isinstance(info, EncoderFault):
+            force_step = info.force_step
+            stepped = (st.ladder.force_step_down() if force_step
+                       else st.ladder.record_failure())
+            if stepped:
+                st.wedge_faults = 0
+                logger.warning("display %s degraded to rung %s",
+                               st.display_id, st.ladder.rung)
+                if st.supervisor is not None:
+                    # the ladder absorbed this failure streak; judge the
+                    # new rung against a fresh budget, or probe cycles
+                    # would terminally fail a healthy degraded display
+                    st.supervisor.forgive()
+            elif force_step:
+                # wedged with nowhere left to degrade: each rebuild of a
+                # hung encoder may abandon a blocked thread, so bound the
+                # cycle instead of leaking threads forever
+                st.wedge_faults += 1
+                if st.wedge_faults >= 3:
+                    logger.error(
+                        "display %s wedged %d times at the bottom rung; "
+                        "marking failed", st.display_id, st.wedge_faults)
+                    kind = "failed"
+        if kind == "failed":
+            # a failed capture pipeline must not leave its sibling
+            # backpressure loop ticking; tear the display down from
+            # outside the supervisor task that emitted the event
+            # (stopping it inline would await the task we are inside of)
+            st.failed = True
+            self._spawn_background(self._teardown_failed_display(st),
+                                   f"teardown-failed:{st.display_id}")
+        self._broadcast_health()
+
+    async def _teardown_failed_display(self, st: DisplayState) -> None:
+        async with st.lock:
+            if not st.failed:
+                # an explicit START_VIDEO/SETTINGS restarted the display
+                # before this queued teardown ran: it is healthy again
+                return
+            await self._stop_display_locked(st)
+
+    def _failed_displays(self) -> int:
+        return sum(1 for d in self.display_clients.values()
+                   if d.failed or (d.supervisor is not None
+                                   and d.supervisor.state == FAILED))
+
+    def _health_payload(self) -> str:
+        """The ``system,health`` wire message: per-display supervision,
+        watchdog and degradation-ladder state (the JAX server's keys, less
+        the flight recorder's ``stages`` and the mesh, not ported yet)."""
+        displays: Dict[str, Any] = {}
+        for did, st in self.display_clients.items():
+            sup = st.supervisor.stats() if st.supervisor is not None else {}
+            d: Dict[str, Any] = {
+                "rung": st.ladder.rung,
+                "ladder": st.ladder.state(),
+                "failed": st.failed,
+                "supervisor": sup.get("state",
+                                      "failed" if st.failed else "idle"),
+                "restarts": sup.get("restarts_total", 0),
+                "failures": sup.get("failures_total", 0),
+                "watchdog_restarts": sup.get("watchdog_restarts_total", 0),
+            }
+            enc = st.encoder
+            if enc is not None and hasattr(enc, "stats"):
+                est = enc.stats()
+                d["frames_dropped"] = est.get("frames_dropped", 0)
+                d["encode_errors"] = est.get("encode_errors", 0)
+            displays[did] = d
+        return pack_system_health(displays)
+
+    def _broadcast_health(self) -> None:
+        try:
+            if self.clients:
+                _ws_broadcast(set(self.clients), self._health_payload())
+        except Exception:
+            logger.exception("health broadcast failed")

@@ -472,3 +472,139 @@ def test_frame_written_on_a_side_stream(cuda_device, path):
     assert sorted(got) == list(range(n))
     for k in range(n):
         assert key(got[k]) == key(want[k]), f"frame {k}"
+
+
+LADDER_W, LADDER_H = 640, 360
+
+
+def _ladder_settings(**env):
+    from selkies_tpu_torch.settings import Settings
+
+    return Settings(argv=[], env=dict({
+        "SELKIES_PORT": "0", "SELKIES_ENCODER": "x264enc-striped",
+        "SELKIES_LADDER_FAIL_THRESHOLD": "3",
+        "SELKIES_SUPERVISOR_MAX_RESTARTS": "50"}, **env))
+
+
+def test_display_walks_the_ladder_on_the_card(cuda_device):
+    """A served 640x360 x264enc-striped display on the card, every frame
+    ACKed: encode.raise*3 steps it device -> host (0x04, me_mc launches),
+    three more host -> jpeg (0x03, dct8 launches), and a clean window
+    probes it back up through host to device (0x04 again); the first frame
+    after every restart is an IDR or a JPEG."""
+    import asyncio
+    import json
+    import time
+
+    from selkies_tpu_torch.protocol.wire import unpack_binary
+    from selkies_tpu_torch.robustness import InProcessClient
+    from selkies_tpu_torch.server.data_server import DataStreamingServer
+
+    from selkies_tpu_torch import _build
+    from selkies_tpu_torch.native import cavlc_lib, entropy_lib
+
+    # every rung's kernels and host coders built first, as the entry
+    # point's warm-up does: a rung whose first frame waits for a build
+    # still submits (clean ticks), so the 4 s probe could step it back up
+    # before it sent a frame
+    for stem in ("me_mc", "dct_quant"):
+        _build.load_library(stem)
+    cavlc_lib()
+    entropy_lib()
+
+    async def run():
+        server = DataStreamingServer(
+            _ladder_settings(SELKIES_LADDER_PROBE_MS="4000"),
+            device=cuda_device)
+        ws = InProcessClient()
+        task = asyncio.create_task(server.ws_handler(ws))
+        ws.feed("SETTINGS," + json.dumps({
+            "displayId": "primary", "initialClientWidth": LADDER_W,
+            "initialClientHeight": LADDER_H, "framerate": 60}))
+        seen = {"n": 0, "rung": "device", "fresh": False, "id": None}
+        types = {"device": set(), "host": set(), "jpeg": set()}
+        launches = {"device": [0, 0], "host": [0, 0], "jpeg": [0, 0]}
+        last = [me_mc_stripes.launches, dct8_quant_zigzag.launches]
+
+        async def until(pred, timeout=120.0):
+            deadline = time.monotonic() + timeout
+            while not pred():
+                assert time.monotonic() < deadline, (seen, types)
+                await asyncio.sleep(0.005)
+                st = server.display_clients["primary"]
+                now = [me_mc_stripes.launches, dct8_quant_zigzag.launches]
+                for k in (0, 1):
+                    launches[st.ladder.rung][k] += now[k] - last[k]
+                last[:] = now
+                for m in ws.sent[seen["n"]:]:
+                    if isinstance(m, str):
+                        if m.startswith("PIPELINE_RESETTING"):
+                            seen["fresh"], seen["id"] = True, None
+                        elif '"system_health"' in m:
+                            seen["rung"] = json.loads(m)["displays"][
+                                "primary"]["rung"]
+                        continue
+                    f = unpack_binary(bytes(m))
+                    types[seen["rung"]].add(m[0])
+                    if f.frame_id != seen["id"]:
+                        if seen["fresh"]:
+                            assert m[0] == 0x03 or m[1] == 1
+                            seen["fresh"] = False
+                        seen["id"] = f.frame_id
+                        ws.feed(f"CLIENT_FRAME_ACK {f.frame_id}")
+                seen["n"] = len(ws.sent)
+
+        await until(lambda: types["device"])
+        st = server.display_clients["primary"]
+        server.faults.arm_spec("encode.raise*3")
+        await until(lambda: st.ladder.transitions and types["host"])
+        server.faults.arm_spec("encode.raise*3")
+        await until(lambda: len(st.ladder.transitions) >= 2
+                    and types["jpeg"])
+        types["device"].clear()            # frames after the probes
+        await until(lambda: len(st.ladder.transitions) == 4
+                    and types["device"])
+        transitions = list(st.ladder.transitions)
+        await ws.close()
+        await asyncio.wait_for(task, 30.0)
+        await server.stop()
+        return transitions, types, launches
+
+    transitions, types, launches = asyncio.run(run())
+    assert transitions == ["device->host", "host->jpeg", "jpeg->host",
+                           "host->device"]
+    assert types == {"device": {0x04}, "host": {0x04}, "jpeg": {0x03}}
+    assert launches["device"][0] > 0 and launches["host"][0] > 0
+    assert launches["jpeg"][1] > 0
+
+
+def test_first_frame_at_each_rung_equals_cpu(cuda_device):
+    """For each rung of an x264enc-striped display at 640x360, the encoder
+    the server builds there (the factory with the rung's overrides) gives
+    the same first-frame wire messages on the card as on the CPU: an IDR
+    at device and host, JPEG stripes at jpeg."""
+    from selkies_tpu_torch.robustness import RUNGS
+    from selkies_tpu_torch.server.data_server import (_pack_stripe,
+                                                      default_encoder_factory,
+                                                      rung_overrides)
+
+    settings = _ladder_settings()
+    frame = SyntheticSource(LADDER_W, LADDER_H, pattern="desktop",
+                            seed=5).next_frame()
+    for rung in RUNGS:
+        got = []
+        for dev in ("cpu", cuda_device):
+            enc = default_encoder_factory(LADDER_W, LADDER_H, settings,
+                                          rung_overrides({}, rung),
+                                          device=dev)
+            enc.submit(frame)
+            (_, stripes), = enc.flush(120.0)
+            got.append([_pack_stripe(1, s, enc) for s in stripes])
+            assert enc.stats()["encode_errors"] == 0
+            enc.close()
+            assert enc.join(30.0)
+        assert got[0] == got[1], rung
+        assert got[1] and all(m[0] == (0x03 if rung == "jpeg" else 0x04)
+                              for m in got[1])
+        if rung != "jpeg":
+            assert all(m[1] == 1 for m in got[1])          # IDR

@@ -41,6 +41,7 @@ from selkies_tpu_torch.encoder import h264_device as tdev  # noqa: E402
 from selkies_tpu_torch.encoder import pipeline as tpipe  # noqa: E402
 from selkies_tpu_torch.encoder.h264 import H264StripeEncoder  # noqa: E402
 from selkies_tpu_torch.encoder.pipeline import PipelinedH264Encoder  # noqa: E402
+from selkies_tpu_torch.robustness import InProcessClient  # noqa: E402
 
 W, H = 128, 96
 PROFILES = {"striped": dict(stripe_height=32), "fullframe": dict(fullframe=True)}
@@ -504,39 +505,6 @@ def test_factory_reads_selkies_tpu_async_batch(monkeypatch, profile):
         assert drv.join(30.0)
 
 
-class _Client:
-    """Just enough websocket surface for the server's ws_handler."""
-
-    def __init__(self):
-        self.sent = []
-        self.closed = False
-        self._incoming = asyncio.Queue()
-
-    async def send(self, message):
-        self.sent.append(message)
-
-    def send_nowait(self, message):
-        if not self.closed:
-            self.sent.append(message)
-
-    def feed(self, message):
-        self._incoming.put_nowait(message)
-
-    async def close(self):
-        if not self.closed:
-            self.closed = True
-            self._incoming.put_nowait(None)
-
-    def __aiter__(self):
-        return self
-
-    async def __anext__(self):
-        m = await self._incoming.get()
-        if m is None:
-            raise StopAsyncIteration
-        return m
-
-
 N_SERVED = 7
 
 
@@ -570,7 +538,7 @@ def _serve(monkeypatch, batch):
         server = tds.DataStreamingServer(_settings("x264enc-striped"),
                                          source_factory=_FiniteSource,
                                          device="cpu", host="127.0.0.1")
-        ws = _Client()
+        ws = InProcessClient()
         task = asyncio.create_task(server.ws_handler(ws))
         ws.feed("SETTINGS," + json.dumps({
             "displayId": "primary", "initialClientWidth": W,

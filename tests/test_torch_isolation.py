@@ -51,6 +51,7 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.__main__\n"
         "import selkies_tpu_torch.server.main\n"
         "import selkies_tpu_torch.server.data_server\n"
+        "import selkies_tpu_torch.robustness\n"
         "import selkies_tpu_torch.encoder.pipeline\n"
         "import selkies_tpu_torch.encoder.state\n"
         "import selkies_tpu_torch.ops.dct_quant\n"

@@ -18,46 +18,13 @@ pytest.importorskip("jax")
 
 from selkies_tpu_torch.capture.synthetic import SyntheticSource
 from selkies_tpu_torch.protocol.wire import unpack_binary
+from selkies_tpu_torch.robustness import InProcessClient
 from selkies_tpu_torch.server import data_server as tds
 from selkies_tpu_torch.settings import Settings
 
 
-class Client:
-    """Just enough websocket surface for both servers' ws_handler."""
-
-    def __init__(self):
-        self.sent = []
-        self.closed = False
-        self._incoming = asyncio.Queue()
-
-    async def send(self, message):
-        if self.closed:
-            raise ConnectionError("closed")
-        self.sent.append(message)
-
-    def send_nowait(self, message):
-        if not self.closed:
-            self.sent.append(message)
-
-    def feed(self, message):
-        self._incoming.put_nowait(message)
-
-    async def close(self):
-        if not self.closed:
-            self.closed = True
-            self._incoming.put_nowait(None)
-
-    def binary(self):
-        return [m for m in self.sent if isinstance(m, (bytes, bytearray))]
-
-    def __aiter__(self):
-        return self
-
-    async def __anext__(self):
-        m = await self._incoming.get()
-        if m is None:
-            raise StopAsyncIteration
-        return m
+#: the port's in-process websocket stand-in
+Client = InProcessClient
 
 
 W, H = 256, 120
@@ -291,20 +258,23 @@ def test_server_without_card_or_device_raises(monkeypatch):
 
 
 def _failing_factory(w, h, settings, overrides=None, device=None):
-    """The served encoder, with every frame's dispatch raising as a kernel
-    that fails to launch would."""
+    """The served encoder, whose device rung loses every frame's dispatch
+    as a kernel that fails to launch would; the host rung works."""
     enc = tds.default_encoder_factory(w, h, settings, overrides, device=device)
 
     def dispatch_fails(frame):
         raise RuntimeError("kernel launch failed")
 
-    enc.pipe._submit = dispatch_fails      # what the driver thread calls
+    if hasattr(enc, "pipe"):     # the device rung, behind the async driver
+        enc.pipe._submit = dispatch_fails      # what the driver thread calls
     return enc
 
 
 def test_encoder_error_ends_the_server():
-    """With no degradation ladder, a frame lost to the encoder stops
-    run_server, which raises the error, instead of serving no frames."""
+    """An encoder error does not end the server: the frames the device rung
+    loses step the display's degradation ladder to the host rung, which
+    serves 0x03 stripes on the same socket, and run_server stays up until
+    stop()."""
     async def run():
         server = tds.DataStreamingServer(
             Settings(argv=[], env=dict(ENV)), encoder_factory=_failing_factory,
@@ -314,11 +284,16 @@ def test_encoder_error_ends_the_server():
         task = asyncio.create_task(server.ws_handler(ws))
         assert await _wait(lambda: len(ws.sent) >= 2)
         ws.feed("SETTINGS," + json.dumps(SETTINGS))
-        with pytest.raises(RuntimeError, match="encoder of display primary"):
-            await asyncio.wait_for(serve, 30.0)
-        assert str(server.fatal.__cause__) == "kernel launch failed"
-        assert not ws.binary()
+        assert await _wait(lambda: "primary" in server.display_clients)
+        st = server.display_clients["primary"]
+        assert await _wait(lambda: st.ladder.rung == "host")
+        assert await _wait(lambda: len(_frames(ws)) >= 2)
+        assert st.ladder.transitions[0] == "device->host"
+        assert st.ladder.failures_total >= 3
+        assert type(st.encoder).__name__ == "ThreadedEncoderAdapter"
+        assert not st.failed and not ws.closed and not serve.done()
         await _close(server, ws, task)
+        await asyncio.wait_for(serve, 10.0)     # stop() ends it
     asyncio.run(run())
 
 
