@@ -57,10 +57,23 @@ encoder goes back to the allocator's pool: the encoder_churn phase builds,
 uses and closes eight encoders of each profile in turn and checks that
 the reserved memory stops growing.
 
+Multi-session lanes (``parallel/``): ``mesh_encoder`` drives one lane of
+4 and of 8 sessions at 1080p per profile (JPEG; x264enc-striped on the
+device tier at 4 and 8, on the host tier at 4) with frames made on the
+card, each session its own, one idle: every session's checked bytes equal
+its own solo encoder's, one kernel launch per tick, rates, device ops per
+tick and the lane's memory peak beside the solo encoder's figures; and
+``server_mesh`` serves four x264enc-striped displays from one lane through
+``ws_handler``, sheds a fifth with KILL server_full, and migrates one
+display off a slot faulted by ``mesh.slot_raise`` while the others keep
+streaming. Both kernels are held against their plain versions at the
+lanes' shapes too.
+
 It prints one JSON object per line (setup, kernels, encoder, h264_encoder,
 h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
-h264_batch, server_h264_batch, server_faults, jpeg_device_frames,
-encoder_churn, h264_cross, profile, profile_h264, profile_fullframe),
+h264_batch, server_h264_batch, server_faults, mesh_encoder, server_mesh,
+jpeg_device_frames, encoder_churn, h264_cross, profile, profile_h264,
+profile_fullframe),
 the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits
@@ -105,6 +118,9 @@ N_HOST = 40
 CHECK_EVERY = 5
 #: where the port runs (a CPU rehearsal of the phases may set "cpu")
 DEVICE = "cuda"
+#: sessions per lane measured by mesh_encoder and held at the lane shapes
+#: by the kernel checks
+MESH_SIZES = (4, 8)
 
 
 def emit(obj) -> None:
@@ -277,12 +293,97 @@ def _main_path_planes(frame_np, enc):
             (cr, enc._recip_c, row_c)]
 
 
+def _lane_planes(frames, enc):
+    """The planes a JPEG lane's tick hands the kernel for N sessions'
+    frames (``encode_body_sessions``: the session axis folded into the
+    rows, [N*1088, 1920] and [N*544, 960]), with q40/q90 bands alternating
+    by (session, stripe)."""
+    import torch
+
+    from selkies_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
+
+    dev = enc.device
+    f = torch.stack([torch.from_numpy(enc._pad(x)) for x in frames]).to(dev)
+    n = f.shape[0]
+    y, cb, cr = rgb_to_ycbcr(f.reshape(n * enc.pad_h, enc.pad_w, 3))
+    cb, cr = subsample_420(cb), subsample_420(cr)
+    qsel = torch.arange(n * enc.n_stripes, device=dev,
+                        dtype=torch.int32) % 2
+    row_y = qsel[torch.arange(y.shape[0] // 8, device=dev) // (STRIPE // 8)]
+    row_c = qsel[torch.arange(cb.shape[0] // 8, device=dev)
+                 // (STRIPE // 16)]
+    return [(y, enc._recip_y, row_y), (cb, enc._recip_c, row_c),
+            (cr, enc._recip_c, row_c)]
+
+
+def _dct_at_lane(enc, n: int) -> dict:
+    """dct8_quant_zigzag at a lane's shape (N sessions folded into the
+    rows: one launch for every session's three planes) against its plain
+    version, exactly (max |diff| 0), on N different scroll and noise
+    frames; kernel, plain and library times and the bound."""
+    import torch
+
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.ops import dct as tdct
+    from selkies_tpu_torch.ops.dct_quant import (dct8_quant_zigzag,
+                                                 dct8_quant_zigzag_plain)
+
+    sets = {
+        "scroll": [SyntheticSource(W, H, pattern="scroll", seed=10 + k)
+                   .next_frame() for k in range(n)],
+        "noise": [SyntheticSource(W, H, pattern="noise", seed=20 + k)
+                  .next_frame() for k in range(n)],
+    }
+    max_err = n_coef = 0
+    for frames in sets.values():
+        planes = _lane_planes(frames, enc)
+        l0 = dct8_quant_zigzag.launches
+        outs = dct8_quant_zigzag(planes)
+        check(dct8_quant_zigzag.launches == l0 + 1,
+              f"lane of {n}: the planes took more than one launch")
+        for got, (plane, recip, row) in zip(outs, planes):
+            want = dct8_quant_zigzag_plain(plane, recip, row)
+            torch.cuda.synchronize()
+            max_err = max(max_err,
+                          int((got.int() - want.int()).abs().max().item()))
+            n_coef += got.numel()
+    shape = "[%d,%d]+2x[%d,%d]" % (planes[0][0].shape + planes[1][0].shape)
+    check(max_err == 0, f"dct8 kernel vs plain at the lane shape {shape}: "
+          f"max |diff| {max_err}")
+    planes = _lane_planes(sets["noise"], enc)
+    kernel_ms, how = device_ms(lambda: dct8_quant_zigzag(planes), 50,
+                               f"dct8_quant_zigzag/lane{n}")
+    plain_ms, plain_how = device_ms(
+        lambda: [dct8_quant_zigzag_plain(*p) for p in planes], 3,
+        f"dct8_quant_zigzag/lane{n}/plain")
+    blocks = [tdct.blockify(p) - 128.0 for p, _, _ in planes]
+    library_ms, library_how = device_ms(
+        lambda: [tdct.block_dct2_einsum(b) for b in blocks], 20,
+        f"dct8_quant_zigzag/lane{n}/library")
+    in_bytes = sum(p.numel() * 4 + r.numel() * 4 + i.numel() * 4
+                   for p, r, i in planes)
+    out_bytes = sum(p.numel() * 2 for p, _, _ in planes)
+    flops = sum(p.numel() // 64 for p, _, _ in planes) \
+        * (2 * 64 * 8 * 2 + 64 + 64)
+    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    return {"sessions": n, "shape": shape, "max_abs_err": max_err,
+            "n_coeffs": n_coef, "ms": kernel_ms,
+            "ms_timing": f"{how} device time, warm L2, 50 reps",
+            "plain_ms": plain_ms, "plain_timing": plain_how,
+            "library_ms": library_ms, "library_timing": library_how,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "unit": f"one lane tick of {n} 1080p frames, 1 launch"}
+
+
 def phase_kernel_check():
     """dct8_quant_zigzag (one launch for a frame's three planes) against
     its plain version, plane by plane, at the 1080p shapes, q40/q90 bands
     alternating by stripe; then kernel, plain and library (one
     torch.einsum DCT) times, the kernel's time when it is called once per
-    plane, and the bound of the work."""
+    plane, and the bound of the work. ``lane_shapes``: the same at the
+    shapes of a JPEG lane's tick of MESH_SIZES sessions."""
     import torch
 
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
@@ -380,6 +481,7 @@ def phase_kernel_check():
         "unit": "one 1080p frame: Y 1088x1920 + Cb, Cr 544x960, 1 launch",
         "bytes": in_bytes + out_bytes,
         "flops": flops,
+        "lane_shapes": {f"N{n}": _dct_at_lane(enc, n) for n in MESH_SIZES},
     }
 
 
@@ -480,16 +582,22 @@ def _overflow_run():
             "check_s": tally["check_s"]}, pipe._seq
 
 
-def _timed_run(make_pipeline, frames, n_warm: int, record=None):
+def _timed_run(make_pipeline, frames, n_warm: int, record=None,
+               profiled: bool = False):
     """A pipeline from ``make_pipeline`` behind its async driver: warm it
     with ``frames[:n_warm]``, then time the rest (waiting when the queue is
     full, never dropping). ``record(base)``, called before the warm-up,
-    installs what keeps frames for a check after the window."""
+    installs what keeps frames for a check after the window; ``profiled``
+    puts the timed window under torch.profiler and adds its device share
+    (``_device_share``) to the stats."""
     base, pipe, drv = make_pipeline()
     kept = record(base) if record is not None else None
     for f in frames[:n_warm]:
         drv.try_submit(f)
     drv.flush()
+    prof = _profiler() if profiled else None
+    if prof is not None:
+        prof.__enter__()
     t0 = time.perf_counter()
     results = []
     for f in frames[n_warm:]:
@@ -499,9 +607,18 @@ def _timed_run(make_pipeline, frames, n_warm: int, record=None):
     results += drv.flush()
     wall = time.perf_counter() - t0
     st = drv.stats()
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        st = dict(st, **_device_share(prof, len(frames) - n_warm, wall))
     drv.close()
     drv.join(30.0)
     return base, pipe, kept, results, wall, st
+
+
+def _profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
 def _rates(n: int, wall: float, st: dict) -> dict:
@@ -1046,11 +1163,16 @@ def phase_server_faults():
 def _h264_planes(cur_np, ref_np, enc):
     """The (cur, ref, ref_cb, ref_cr) stripe tensors the P step hands the
     motion kernel for one frame pair (the encoder's own planes on the
-    card; the reference here is the previous source frame)."""
+    card; the reference here is the previous source frame). Lists of N
+    frames give a lane's tick: the sessions' stripes one after another on
+    the stripe axis, [N*S, h, w]."""
     import torch
 
     from selkies_tpu_torch.encoder.h264_device import prepare_planes
 
+    if isinstance(cur_np, list):
+        per = [_h264_planes(c, r, enc) for c, r in zip(cur_np, ref_np)]
+        return [torch.cat(ts) for ts in zip(*per)]
     S, sh, pw = enc.n_stripes, enc.stripe_h, enc.pad_w
     y1, _, _ = prepare_planes(torch.from_numpy(cur_np).to(enc.device),
                               enc.pad_h, pw)
@@ -1075,26 +1197,34 @@ def _tie_pairs():
     return {"flat": (flat_cur, flat_ref), "lattice": (lat_cur, lat_ref)}
 
 
-def _me_at_shape(enc, int_ops_per_s: float) -> dict:
+def _me_at_shape(enc, int_ops_per_s: float, sessions: int = 0) -> dict:
     """me_mc_stripes against its plain version (full_search_mc) at the
     shapes ``enc``'s P step hands it, on a scroll pair (true motion), a
     noise pair and two pairs whose searches tie (_tie_pairs): mv and the
     three predictions must be exactly equal. Then kernel and plain times
-    and the bound of the work."""
+    and the bound of the work. ``sessions=N``: a lane's tick, N sessions'
+    pairs (scroll and noise of their own seeds) on one stripe axis."""
     import torch
 
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
     from selkies_tpu_torch.ops.motion import full_search_mc
 
-    scroll = SyntheticSource(W, H, pattern="scroll", seed=0)
-    a = scroll.next_frame()
-    pairs = {"scroll": (scroll.next_frame(), a),
-             "noise": (SyntheticSource(W, H, pattern="noise", seed=1)
-                       .next_frame(),
-                       SyntheticSource(W, H, pattern="noise", seed=2)
-                       .next_frame()),
-             **_tie_pairs()}
+    def pair_set(k):
+        scroll = SyntheticSource(W, H, pattern="scroll", seed=k)
+        a = scroll.next_frame()
+        return {"scroll": (scroll.next_frame(), a),
+                "noise": (SyntheticSource(W, H, pattern="noise", seed=k + 1)
+                          .next_frame(),
+                          SyntheticSource(W, H, pattern="noise", seed=k + 2)
+                          .next_frame()),
+                **_tie_pairs()}
+
+    pairs = pair_set(0)
+    if sessions:
+        sets = [pair_set(10 * k) for k in range(sessions)]
+        pairs = {name: ([s[name][0] for s in sets], [s[name][1] for s in sets])
+                 for name in pairs}
     n_diff = n_vals = 0
     per_pair, moved = {}, {}
     for name, (cur, ref) in pairs.items():
@@ -1109,6 +1239,7 @@ def _me_at_shape(enc, int_ops_per_s: float) -> dict:
         moved[name] = int((got[0] != 0).any(-1).sum().item())
     S, h, w = _h264_planes(*pairs["scroll"], enc)[0].shape
     shape = f"[{S},{h},{w}]"
+    reps, plain_reps = (50, 2) if not sessions else (20, 1)
     check(n_diff == 0, f"me_mc kernel vs plain at {shape}: {n_diff} of "
           f"{n_vals} differ ({per_pair})")
     check(moved["scroll"] > 0, f"{shape}: scroll pair found no motion")
@@ -1116,10 +1247,10 @@ def _me_at_shape(enc, int_ops_per_s: float) -> dict:
     check(moved["lattice"] > 0, f"{shape}: lattice pair found no motion")
 
     args = _h264_planes(*pairs["scroll"], enc)
-    kernel_ms, kernel_how = device_ms(lambda: me_mc_stripes(*args), 50,
+    kernel_ms, kernel_how = device_ms(lambda: me_mc_stripes(*args), reps,
                                       f"me_mc_stripes{shape}")
-    plain_ms, plain_how = device_ms(lambda: full_search_mc(*args), 2,
-                                    f"me_mc_stripes{shape}/plain")
+    plain_ms, plain_how = device_ms(lambda: full_search_mc(*args),
+                                    plain_reps, f"me_mc_stripes{shape}/plain")
     events_ms = cuda_time_ms(lambda: me_mc_stripes(*args), 20)
 
     n_off = (2 * enc.search + 1) ** 2
@@ -1142,7 +1273,9 @@ def _me_at_shape(enc, int_ops_per_s: float) -> dict:
         "n_diff_by_pair": per_pair,
         "moved_blocks_by_pair": moved,
         "ms": kernel_ms,
-        "ms_timing": f"{kernel_how} device time, 50 reps, 1080p scroll pair",
+        "ms_timing": f"{kernel_how} device time, {reps} reps, 1080p scroll "
+                     "pair" + (f" of each of {sessions} sessions"
+                               if sessions else ""),
         "plain_timing": plain_how,
         "events_ms": events_ms,
         "plain_ms": plain_ms,
@@ -1154,7 +1287,9 @@ def _me_at_shape(enc, int_ops_per_s: float) -> dict:
                         f"lanes x {int_ops_per_s / INT32_LANES / 1e6:.0f} "
                         f"MHz max SM clock); {in_bytes + out_bytes} bytes / "
                         "3.35 TB/s"),
-        "unit": f"one 1080p P frame: {S} stripe(s) of {h}x{w}, 1 launch",
+        "unit": (f"one lane tick of {sessions} 1080p P frames: "
+                 if sessions else "one 1080p P frame: ")
+        + f"{S} stripe(s) of {h}x{w}, 1 launch",
     }
 
 
@@ -1172,6 +1307,9 @@ def phase_me_kernel_check(int_ops_per_s: float):
         int_ops_per_s)
     full = _me_at_shape(H264StripeEncoder(W, H, fullframe=True, device=DEVICE),
                         int_ops_per_s)
+    lanes = {f"N{n}": _me_at_shape(
+        H264StripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE),
+        int_ops_per_s, sessions=n) for n in MESH_SIZES}
     entry = {
         "name": "me_mc_stripes",
         "route": "cuda",
@@ -1184,6 +1322,7 @@ def phase_me_kernel_check(int_ops_per_s: float):
                   .splitlines() if "registers" in ln or "spill" in ln],
         "sass_per_vabsdiff4": _per_vabsdiff4(),
         "full_frame": full,
+        "lane_shapes": lanes,
     }
     return entry
 
@@ -1778,6 +1917,479 @@ def phase_jpeg_device_frames():
     return out, launches
 
 
+#: mesh_encoder: each lane's (profile, entropy tier, sessions); its first
+#: ticks checked against solo encoders (every session against one of its
+#: own), the ticks of its timed run and of its profiled window; the
+#: scheduler's in-flight window; the frames of each solo figure's runs
+MESH_CONFIGS = (("jpeg", None, 4), ("jpeg", None, 8),
+                ("x264enc-striped", "device", 4),
+                ("x264enc-striped", "device", 8),
+                ("x264enc-striped", "host", 4))
+MESH_CHECK_TICKS = 6
+MESH_TICKS = 30
+MESH_PROFILE_TICKS = 3
+MESH_WINDOW = 2
+MESH_SOLO_FRAMES = 40
+MESH_SOLO_PROFILE_FRAMES = 6
+
+
+def _lane_encoder(profile: str, entropy, n: int):
+    """A lane of ``n`` slots of ``profile`` at W x H on the card, with the
+    settings' defaults (the scheduler's default factory builds the same)."""
+    import torch
+
+    from selkies_tpu_torch.parallel.mesh import (MeshStripeEncoder,
+                                                 parse_mesh_spec)
+    from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder
+
+    mesh = parse_mesh_spec("session:1", [torch.device(DEVICE)])
+    if profile == "jpeg":
+        return MeshStripeEncoder(mesh, n, W, H, stripe_h=STRIPE)
+    return MeshH264Encoder(mesh, n, W, H, stripe_h=STRIPE, entropy=entropy)
+
+
+def _solo_encoder(profile: str, entropy):
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+    from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder
+
+    if profile == "jpeg":
+        return JpegStripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE)
+    return H264StripeEncoder(W, H, stripe_height=STRIPE, entropy=entropy,
+                             device=DEVICE)
+
+
+class _LaneFeed:
+    """Each session's frames made on the card: a DeviceScrollSource of its
+    own (seed k, k frames in, at the padded 1088 rows). The last session
+    has a frame on the first tick only, and is idle (None) after it."""
+
+    def __init__(self, n: int) -> None:
+        from selkies_tpu_torch.capture.synthetic import DeviceScrollSource
+
+        pad_h = -(-H // STRIPE) * STRIPE
+        self.src = []
+        for k in range(n):
+            src = DeviceScrollSource(W, pad_h, seed=k, device=DEVICE)
+            for _ in range(k):
+                src.next_frame()
+            self.src.append(src)
+        self.ticks = 0
+
+    def next(self):
+        out = [src.next_frame() for src in self.src]
+        if self.ticks:
+            out[-1] = None
+        self.ticks += 1
+        return out
+
+
+def _stripe_bytes(stripes):
+    return [(s.y_start, getattr(s, "is_key", None),
+             getattr(s, "annexb", None) or s.jpeg) for s in stripes]
+
+
+def _lane_drive(lane, feeds, window: int = MESH_WINDOW):
+    """Drive ``lane`` over the tick frames ``feeds`` yields as the scheduler
+    does: up to ``window`` dispatched ticks in flight, the oldest harvested
+    first when the window is full, any whose copy landed harvested after
+    each dispatch. Returns (outputs per tick, wall s, dispatch ms each)."""
+    import torch
+
+    from collections import deque
+
+    inflight, out, disp = deque(), [], []
+
+    def harvest():
+        out.append(lane.harvest(inflight.popleft())[0])
+
+    t0 = time.perf_counter()
+    for frames in feeds:
+        while len(inflight) >= window:
+            harvest()
+        td = time.perf_counter()
+        inflight.append(lane.dispatch(frames))
+        disp.append((time.perf_counter() - td) * 1e3)
+        while inflight and lane.fetch_ready(inflight[0]):
+            harvest()
+    while inflight:
+        harvest()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, disp
+
+
+def _lane_check_against_solo(profile: str, entropy, n: int, got) -> dict:
+    """``got``: a lane's outputs over its first MESH_CHECK_TICKS ticks of
+    _LaneFeed frames, driven as the timed run drives it (MESH_WINDOW
+    ticks in flight). Each session's frames go through a solo encoder of
+    its own: every session's stripes on every tick must equal its solo
+    encoder's (the idle session's: nothing)."""
+    feed = _LaneFeed(n)
+    solos = [_solo_encoder(profile, entropy) for _ in range(n)]
+    stripes = frames = mismatch = 0
+    t0 = time.perf_counter()
+    for t in range(MESH_CHECK_TICKS):
+        for k, f in enumerate(feed.next()):
+            want = [] if f is None else _stripe_bytes(solos[k].encode_frame(f))
+            frames += f is not None
+            stripes += len(want)
+            mismatch += _stripe_bytes(got[t][k]) != want
+    check(mismatch == 0, f"lane {profile}/{entropy} of {n}: {mismatch} "
+          f"session-frames differ from their solo encoders'")
+    check(stripes > 0, "lane check: no stripes")
+    return {"ticks": MESH_CHECK_TICKS, "session_frames": frames,
+            "stripes": stripes, "mismatch": mismatch,
+            "check_s": time.perf_counter() - t0}
+
+
+def _lane_run(profile: str, entropy, n: int):
+    """A lane warmed by two ticks (the join, a first P tick), MESH_TICKS
+    timed ticks and MESH_PROFILE_TICKS profiled ticks (frames made before
+    the profiler starts), every run at the scheduler's window, with the
+    kernel launches counted from 0 just before the lane runs and read just
+    after (one per tick), and the lane's memory peak over what was
+    allocated before it was built; last, the first MESH_CHECK_TICKS ticks
+    of the warm and timed runs against solo encoders. Returns (numbers,
+    launches)."""
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+
+    kernel = dct8_quant_zigzag if profile == "jpeg" else me_mc_stripes
+    other = me_mc_stripes if profile == "jpeg" else dct8_quant_zigzag
+    alloc0 = _peak_mark()
+    kernel.launches = other.launches = 0
+    lane = _lane_encoder(profile, entropy, n)
+    feed = _LaneFeed(n)
+    warm, _, _ = _lane_drive(lane, [feed.next() for _ in range(2)])
+    d2h0, l0 = lane.d2h_bytes_total, kernel.launches
+    out, wall, disp = _lane_drive(lane, (feed.next()
+                                         for _ in range(MESH_TICKS)))
+    timed_launches = kernel.launches - l0
+    d2h = lane.d2h_bytes_total - d2h0
+    peak = _peak_since(alloc0)
+    frames = [feed.next() for _ in range(MESH_PROFILE_TICKS)]
+    prof = _profiler()
+    with prof:
+        _, pwall, _ = _lane_drive(lane, frames)
+    share = _device_share(prof, MESH_PROFILE_TICKS, pwall)
+    launches = kernel.launches
+    ticks = 2 + MESH_TICKS + MESH_PROFILE_TICKS
+    check(launches == ticks and timed_launches == MESH_TICKS
+          and other.launches == 0,
+          f"lane {profile}/{entropy} of {n}: {launches} launches in "
+          f"{ticks} ticks ({timed_launches} in {MESH_TICKS} timed), "
+          f"{other.launches} of the other kernel")
+    active = n - 1
+    stripes = sum(len(s) for tick in out for s in tick)
+    wire = sum(len(b) for tick in out for s in tick
+               for _, _, b in _stripe_bytes(s))
+    res = {"profile": profile, "entropy": entropy or "device",
+           "sessions": n, "active_sessions": active, "ticks": MESH_TICKS,
+           "aggregate_fps": active * MESH_TICKS / wall,
+           "fps_per_session": MESH_TICKS / wall,
+           "tick_ms": wall * 1e3 / MESH_TICKS,
+           "tick_dispatch_p50_ms": float(np.median(disp)),
+           "d2h_bytes_per_tick": d2h / MESH_TICKS,
+           "h2d_bytes_total": lane.h2d_bytes_total,
+           "stripes_per_tick": stripes / MESH_TICKS,
+           "wire_payload_bytes_per_tick": wire / MESH_TICKS,
+           "kernel": "dct8_quant_zigzag" if profile == "jpeg"
+           else "me_mc_stripes",
+           "kernel_launches": launches,
+           "lane_ticks": ticks,
+           "kernel_launches_per_tick": timed_launches / MESH_TICKS,
+           "device_ops_per_tick": share["device_ops_per_frame"],
+           "device_ops_per_session_frame":
+               share["device_ops_per_frame"] / active,
+           "device_ms_per_tick": share["device_ms_per_frame"],
+           "device_busy_share": share["device_busy_share"],
+           "me_mc_events_per_tick": share["me_mc_events_per_frame"],
+           "profiled_tick_ms": share["wall_ms_per_frame"]}
+    res.update({f"lane_{k}": v for k, v in peak.items()})
+    del lane
+    res["checked"] = _lane_check_against_solo(
+        profile, entropy, n, (warm + out)[:MESH_CHECK_TICKS])
+    return res, launches
+
+
+def _solo_figures(profile: str, entropy) -> dict:
+    """The solo served encoder of the same profile and tier in the same
+    call (pipelined behind its driver, or the host rung's threaded
+    adapter), on MESH_SOLO_FRAMES frames made on the card: fps, dispatch
+    (encode) p50, D2H bytes per frame; and a short profiled run's device
+    ops per frame and busy share."""
+    from selkies_tpu_torch.capture.synthetic import DeviceScrollSource
+
+    pad_h = -(-H // STRIPE) * STRIPE
+
+    def make():
+        if profile == "jpeg":
+            return _pipeline()
+        return _served(profile, entropy)
+
+    def frames(n):
+        src = DeviceScrollSource(W, pad_h, seed=0, device=DEVICE)
+        return [src.next_frame() for _ in range(n + 1)]
+
+    _, _, _, res, wall, st = _timed_run(make, frames(MESH_SOLO_FRAMES), 1)
+    check(len(res) == MESH_SOLO_FRAMES and st.get("encode_errors", 0) == 0,
+          f"solo {profile}/{entropy}: {len(res)} frames, {st}")
+    out = _rates(MESH_SOLO_FRAMES, wall, st)
+    out["d2h_bytes_per_frame"] = st.get("d2h_bytes_per_frame")
+    _, _, _, _, _, pst = _timed_run(make, frames(MESH_SOLO_PROFILE_FRAMES), 1,
+                                    profiled=True)
+    out.update({"device_ops_per_frame": pst["device_ops_per_frame"],
+                "device_busy_share": pst["device_busy_share"],
+                "profiled_fps": 1e3 / pst["wall_ms_per_frame"]})
+    return out
+
+
+def phase_mesh_encoder():
+    """Multi-session lanes at 1080p on the card (MESH_CONFIGS): each
+    lane's checked run (every session's bytes equal its own solo
+    encoder's), its timed run (aggregate and per-session fps, tick
+    dispatch p50, D2H bytes per tick, one kernel launch per tick, the
+    lane's memory peak) and its profiled window (device ops per tick and
+    per session-frame, busy share), beside the solo served encoder's
+    figures of the same profile in the same call. Returns the phase and
+    the kernels' launches by path (``mesh:<profile>/N<sessions>``, each
+    lane's own run)."""
+    out = {"phase": "mesh_encoder", "width": W, "height": H,
+           "stripe_h": STRIPE, "window": MESH_WINDOW,
+           "source": "DeviceScrollSource per session (own seed and "
+                     "offset), the last session idle after its first tick",
+           "lanes": [], "solo": {}}
+    launches = {}
+    for profile, entropy, n in MESH_CONFIGS:
+        _settle(f"mesh_encoder/{profile}/{entropy}/{n}")
+        res, count = _lane_run(profile, entropy, n)
+        out["lanes"].append(res)
+        path = ("mesh:" + profile + ("/host" if entropy == "host" else "")
+                + f"/N{n}")
+        launches[path] = count
+        key = f"{profile}/{entropy or 'device'}"
+        if key not in out["solo"]:
+            out["solo"][key] = _solo_figures(profile, entropy)
+    return out, launches
+
+
+#: server_mesh: displays in the lane, frames each must have ACKed, and
+#: the scheduler settings of tests/test_swarm.py's admission server (one
+#: lane of 4 slots; the fifth display queues for ADMISSION_QUEUE_MS, then
+#: is shed)
+SERVER_MESH_DISPLAYS = 4
+SERVER_MESH_FRAMES = 30
+SERVER_MESH_ENV = {"SELKIES_PORT": "0", "SELKIES_ENCODER": "x264enc-striped",
+                   "SELKIES_TPU_MESH": "session:1",
+                   "SELKIES_TPU_SESSIONS_PER_CHIP": "4",
+                   "SELKIES_MESH_MAX_LANES": "1",
+                   "SELKIES_SECOND_SCREEN": "true",
+                   "SELKIES_MAX_DISPLAYS": "0",
+                   "SELKIES_ADMISSION_QUEUE_MS": "500",
+                   "SELKIES_WATCHDOG_FRAMES": "0",
+                   "SELKIES_SUPERVISOR_MAX_RESTARTS": "1000"}
+SERVER_MESH_TIMEOUT_S = 180.0
+
+
+class _Viewer:
+    """One in-process client of a display: reads what the server sent,
+    ACKs every new frame id, and keeps the frame-id epochs apart (each
+    ``PIPELINE_RESETTING`` restarts the ids at 1)."""
+
+    def __init__(self, server, display_id: str) -> None:
+        from selkies_tpu_torch.robustness import InProcessClient
+
+        self.did = display_id
+        self.ws = InProcessClient()
+        self.task = asyncio.create_task(server.ws_handler(self.ws))
+        self.seen = 0
+        self.epoch = 0
+        self.frames = []            # (epoch, frame id, monotonic time)
+        self.resets = []            # monotonic time of each reset
+        self.health = []
+        self.t_open = time.monotonic()
+        self.ws.feed("SETTINGS," + json.dumps({
+            "displayId": display_id, "initialClientWidth": W,
+            "initialClientHeight": H, "framerate": 60}))
+
+    def pump(self) -> None:
+        from selkies_tpu_torch.protocol.wire import unpack_binary
+
+        now = time.monotonic()
+        for m in self.ws.sent[self.seen:]:
+            if isinstance(m, (bytes, bytearray)):
+                f = unpack_binary(bytes(m))
+                check(m[0] == 0x04 and f.payload[:4] == b"\x00\x00\x00\x01",
+                      f"{self.did}: bad message type {m[0]}")
+                key = (self.epoch, f.frame_id)
+                if not self.frames or self.frames[-1][:2] != key:
+                    self.frames.append((self.epoch, f.frame_id, now))
+                    self.ws.feed(f"CLIENT_FRAME_ACK {f.frame_id}")
+            elif m == f"PIPELINE_RESETTING {self.did}":
+                self.epoch += 1
+                self.resets.append(now)
+            elif '"system_health"' in m:
+                self.health.append(json.loads(m))
+        self.seen = len(self.ws.sent)
+
+    def first_frame_s(self):
+        return self.frames[0][2] - self.t_open if self.frames else None
+
+    def fps(self):
+        if len(self.frames) < 2:
+            return None
+        return (len(self.frames) - 1) / (self.frames[-1][2]
+                                         - self.frames[0][2])
+
+
+def phase_server_mesh():
+    """Four x264enc-striped 1080p displays at 60 fps served from one lane
+    through the port's ws_handler (tpu_mesh session:1, 4 sessions per
+    card, one lane), every frame ACKed, each until it has
+    SERVER_MESH_FRAMES frames; a fifth display is queued, then shed with
+    KILL server_full. Then the bucket's lane cap is raised to 2, so a sick
+    slot's session has a lane to move to, and ``mesh.slot_raise`` is armed
+    on the first display's slot: the slot is quarantined and the session
+    migrates (a second lane is built), its frame ids restart after
+    PIPELINE_RESETTING, its restart budget is forgiven, and the other
+    three keep streaming. The system_health feed's ``mesh`` key is read;
+    after the displays close, the drained lane with the quarantined slot
+    retires. Reserved memory before and after; every display rode the
+    lane (``solo_fallback`` 0)."""
+    import torch
+
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+    from selkies_tpu_torch.server.data_server import DataStreamingServer
+    from selkies_tpu_torch.settings import Settings
+
+    async def until(pred, viewers, timeout):
+        t0 = time.monotonic()
+        while not pred() and time.monotonic() - t0 < timeout:
+            await asyncio.sleep(0.005)
+            for v in viewers:
+                v.pump()
+        return pred()
+
+    async def run():
+        reserved0 = torch.cuda.memory_reserved()
+        me_mc_stripes.launches = 0
+        server = DataStreamingServer(Settings(argv=[], env=SERVER_MESH_ENV),
+                                     device=DEVICE)
+        views = [_Viewer(server, f"d{k}")
+                 for k in range(SERVER_MESH_DISPLAYS)]
+        ok = await until(lambda: all(len(v.frames) >= SERVER_MESH_FRAMES
+                                     for v in views), views,
+                         SERVER_MESH_TIMEOUT_S)
+        check(ok, "lane displays: " + str([len(v.frames) for v in views]))
+        served = {v.did: {"first_frame_s": v.first_frame_s(),
+                          "frames_per_s": v.fps(), "frames": len(v.frames)}
+                  for v in views}
+        coord = server.mesh_coordinators[(W, H, "x264enc-striped")]
+        st0 = coord.stats()
+        check(st0["lanes"] == 1 and st0["active_sessions"] == 4,
+              f"one lane of 4 expected: {st0}")
+
+        fifth = _Viewer(server, "d4")
+        t5 = time.monotonic()
+        shed = await until(lambda: fifth.ws.closed, views + [fifth], 30.0)
+        fifth.pump()
+        check(shed and "KILL server_full" in fifth.ws.texts(),
+              "the fifth display was not shed")
+        shed_s = time.monotonic() - t5
+        edge = dict(server.edge_stats)
+        check(edge["sessions_queued"] >= 1 and edge["sessions_rejected"] >= 1,
+              f"admission counters: {edge}")
+        await asyncio.wait_for(fifth.task, 10.0)
+
+        victim = server.display_clients["d0"]
+        facade = victim.encoder
+        lane0, slot0 = facade.lane_id, facade.slot
+        before = [len(v.frames) for v in views]
+        coord.max_lanes = 2
+        t_arm = time.monotonic()
+        server.faults.arm("mesh.slot_raise", times=4, arg=f"{lane0}:{slot0}")
+        ok = await until(lambda: coord.migrations_total >= 1, views, 60.0)
+        check(ok, f"no migration: {coord.stats()}")
+        t_mig = time.monotonic()
+        ok = await until(
+            lambda: any(e >= 2 and t > t_mig - 1.0 for e, _, t
+                        in views[0].frames[before[0]:]), views, 60.0)
+        check(ok, "the migrated display sent no frame after its reset")
+        first_after = next((fid, t) for e, fid, t
+                           in views[0].frames[before[0]:] if e >= 2)
+        await until(lambda: False, views, 1.0)
+        after = [len(v.frames) for v in views]
+        check(all(a > b + 5 for a, b in zip(after[1:], before[1:])),
+              f"cohabitants stalled: {before} -> {after}")
+        health = json.loads(server._health_payload())
+        mesh = health.get("mesh", {}).get(f"{W}x{H}/x264enc-striped", {})
+        check(mesh.get("migrations_total") == 1
+              and mesh.get("quarantined_slots") == 1
+              and mesh.get("lanes") == 2
+              and mesh.get("active_sessions") == 4,
+              f"system_health mesh entry: {mesh}")
+        broadcast = any("mesh" in h for v in views for h in v.health)
+        sup = victim.supervisor.stats()
+        result = {
+            "phase": "server_mesh", "profile": "x264enc-striped",
+            "width": W, "height": H, "env": SERVER_MESH_ENV,
+            "displays": served,
+            "fifth_display": {"shed": True, "shed_after_s": shed_s,
+                              **edge},
+            "migration": {
+                "arming_to_migration_s": t_mig - t_arm,
+                "arming_to_first_frame_s": first_after[1] - t_arm,
+                "first_frame_id_after": first_after[0],
+                "epochs_of_victim": views[0].epoch,
+                "victim_lane_slot_before": [lane0, slot0],
+                "victim_lane_slot_after": [facade.lane_id, facade.slot],
+                "victim_supervisor": {k: sup[k] for k in (
+                    "state", "restarts_total", "failures_total")},
+                "victim_failure_times_left":
+                    len(victim.supervisor._failure_times),
+                "cohabitant_frames_during": [
+                    a - b for a, b in zip(after[1:], before[1:])],
+                "slot_faults_total": coord.slot_faults_total},
+            "health_mesh": {k: mesh[k] for k in (
+                "active_sessions", "lanes", "capacity_slots", "free_slots",
+                "quarantined_slots", "migrations_total",
+                "tick_errors_total")},
+            "health_broadcast_with_mesh": broadcast,
+            "mesh_stats": dict(server.mesh_stats),
+        }
+        check(views[0].epoch >= 2 and first_after[0] == 1,
+              f"the victim's frame ids did not restart: {result}")
+        check(facade.lane_id != lane0 and sup["restarts_total"] == 0
+              and sup["state"] == "running"
+              and not victim.supervisor._failure_times,
+              f"migration recovery: {result['migration']}")
+        for v in views:
+            await v.ws.close()
+            await asyncio.wait_for(v.task, 30.0)
+        ok = await until(lambda: coord.lanes_retired_total >= 1, [],
+                         coord.lane_retire_s + 10.0)
+        result["lanes_retired_total"] = coord.lanes_retired_total
+        result["slot_accounting"] = coord.verify_slot_accounting()
+        check(ok and result["slot_accounting"] == [],
+              f"lanes after the displays left: {coord.stats()}")
+        await server.stop()
+        result["me_mc_launches"] = me_mc_stripes.launches
+        result["reserved_mb_before"] = reserved0 / 2**20
+        result["reserved_mb_after"] = torch.cuda.memory_reserved() / 2**20
+        return result
+
+    res = asyncio.run(run())
+    check(res["mesh_stats"] == {"bucketed": SERVER_MESH_DISPLAYS,
+                                "solo_fallback": 0},
+          f"displays did not ride the lane: {res['mesh_stats']}")
+    growth = res["reserved_mb_after"] - res["reserved_mb_before"]
+    res["reserved_growth_mb"] = growth
+    check(growth <= CHURN_GROWTH_MB,
+          f"server_mesh: reserved memory grew {growth:.0f} MB")
+    check(res["me_mc_launches"] > 0, "the lane never launched me_mc")
+    return res
+
+
 #: encoder_churn: cycles per profile, frames per cycle (the batched
 #: encoder's: an IDR batch, then one batched dispatch), and the most the
 #: reserved memory may grow from the 2nd cycle's reading to the last's
@@ -2065,6 +2677,20 @@ def main() -> int:
     kern["launches_by_path"]["x264enc-striped/ladder:jpeg"] = \
         by_rung["jpeg"]["dct8_quant_zigzag"]
 
+    # multi-session lanes: each lane's counts from 0 just before it, read
+    # just after (mesh:<profile>/N<sessions>); then the served lane, from 0
+    # just before the phase
+    mesh, mesh_launches = phase_mesh_encoder()
+    for path, n in mesh_launches.items():
+        (kern if path.startswith("mesh:jpeg/") else kern_me)[
+            "launches_by_path"][path] = n
+    _settle("server_mesh")
+    dct8_quant_zigzag.launches = 0
+    server_mesh = phase_server_mesh()
+    check(dct8_quant_zigzag.launches == 0, "the H.264 lane launched dct8")
+    kern_me["launches_by_path"]["mesh:x264enc-striped (server)"] = \
+        server_mesh["me_mc_launches"]
+
     _settle("encoder_churn")
     churn = phase_encoder_churn()
     enc.update(phase_small_reference())
@@ -2089,6 +2715,8 @@ def main() -> int:
     emit(h264_batch)
     emit(server_batch)
     emit(faults)
+    emit(mesh)
+    emit(server_mesh)
     emit(jpeg_dev)
     emit(churn)
     emit(cross)

@@ -158,6 +158,13 @@ class DeviceEntropyPacker:
       nbytes [S] int64         — scan byte count per stripe (incl. padding);
       base_words [S] int64     — word offset of each stripe in ``words``;
       overflow [S] bool        — stripe unusable (host-code it instead).
+
+    ``sessions=N`` packs N sessions' frames stacked on the rows (``pad_h``
+    is then N times one frame's): every stripe is coded on its own (DC
+    prediction resets per stripe), and each session's stripes compact on
+    their own, so ``words`` is ``[N, cap_words]`` with ``cap_words`` one
+    session's, and ``base_words`` counts from the start of its session's
+    row — row n is the buffer session n alone would give.
     """
 
     #: slot grid per block: 2 DC slots + 63 × (ZRL-pair, ZRL+code, value) + pad
@@ -171,6 +178,7 @@ class DeviceEntropyPacker:
         max_stripe_bytes: int = 1 << 15,
         block_words: int = 56,
         device=None,
+        sessions: int = 1,
     ) -> None:
         from .._device import resolve_device
 
@@ -178,10 +186,15 @@ class DeviceEntropyPacker:
         self.device = dev
         perm, is_chroma, dc_prev, bps = scan_geometry(pad_h, pad_w, stripe_h)
         self.n_stripes = pad_h // stripe_h
+        self.sessions = int(sessions)
+        if self.n_stripes % self.sessions:
+            raise ValueError(f"{self.n_stripes} stripes do not split into "
+                             f"{self.sessions} sessions")
         self.blocks_per_stripe = bps
         self.max_stripe_words = max_stripe_bytes // 4
         self.block_words = block_words
-        self.cap_words = self.n_stripes * self.max_stripe_words
+        self.cap_words = (self.n_stripes // self.sessions) \
+            * self.max_stripe_words
 
         _, ac_l, _, ac_c = std_tables()
         self._zrl = (int(ac_l.code_arr[0xF0]), int(ac_c.code_arr[0xF0]),
@@ -361,19 +374,28 @@ class DeviceEntropyPacker:
         flat.scatter_add_(0, srow + (pw + 1).clamp(0, V - 1), pc1)
         flat = flat & _M32
 
-        # ---- compaction (stripes back-to-back, word aligned) ----------------
-        wc = torch.clamp((t_bytes + 3) // 4, max=V)
-        base_words = torch.cumsum(wc, dim=0) - wc
-        j = torch.arange(self.cap_words, dtype=torch.int64, device=dev)
-        sidx = (torch.searchsorted(base_words, j, right=True) - 1).clamp(0, S - 1)
-        src = sidx * V + (j - base_words[sidx]).clamp(0, V - 1)
-        valid = j < (base_words[-1] + wc[-1])
-        compacted = torch.where(valid, flat[src], torch.zeros_like(src))
+        # ---- compaction (each session's stripes back-to-back, word
+        # aligned) ------------------------------------------------------------
+        B = self.sessions
+        fs = S // B
+        wc = torch.clamp((t_bytes + 3) // 4, max=V).reshape(B, fs)
+        base_words = torch.cumsum(wc, dim=1) - wc
+        j = torch.arange(self.cap_words, dtype=torch.int64,
+                         device=dev).repeat(B, 1)
+        sidx = (torch.searchsorted(base_words, j, right=True) - 1) \
+            .clamp(0, fs - 1)
+        src = sidx * V + (j - base_words.gather(1, sidx)).clamp(0, V - 1)
+        valid = j < (base_words[:, -1] + wc[:, -1])[:, None]
+        compacted = torch.where(valid, flat.reshape(B, fs * V).gather(1, src),
+                                torch.zeros_like(src))
         # uint32 bit patterns → int32
         compacted = torch.where(compacted >= (1 << 31),
                                 compacted - (1 << 32), compacted).to(torch.int32)
 
         stripe_overflow = (t_bytes > V * 4) | blk_ovf.reshape(S, bps).any(dim=1)
+        base_words = base_words.reshape(-1)
+        if B == 1:
+            compacted = compacted[0]
         return compacted, t_bytes, base_words, stripe_overflow
 
     def bucket_words(self, total_words: int) -> int:

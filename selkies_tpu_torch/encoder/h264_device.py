@@ -548,6 +548,88 @@ def encode_frame_p_batch_rgb(rgbs, prev_y, prev_cb, prev_cr, ref_y, ref_cb,
             cr, nry, nrcb, nrcr)
 
 
+def _merge_idr(enc_p: StripeEncodeOut, enc_i: StripeEncodeOut,
+               idr: torch.Tensor) -> StripeEncodeOut:
+    """Per-stripe select between the inter and intra encodes. ``idr`` [S]
+    bool; every field carries the stripe axis first."""
+    def sel(a, b):
+        return torch.where(idr.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+    return StripeEncodeOut(*[sel(a, b) for a, b in zip(enc_i, enc_p)])
+
+
+def encode_frame_p_sessions_rgb(rgbs, prev_y, prev_cb, prev_cr, ref_y,
+                                ref_cb, ref_cr, paint, idr, qp: int,
+                                paint_qp: int, *, pad_h: int, pad_w: int,
+                                n_stripes: int, sh: int,
+                                search: int = SEARCH, with_idr: bool,
+                                entropy: str, cap_frac: int = 4,
+                                max_stripe_bytes: int = 0, prefix: int):
+    """One frame of each of N independent sessions in one step (the JAX
+    lane ``vmap``s the striped P step over its sessions).
+
+    rgbs [N, pad_h, pad_w, 3] uint8; the plane state [N, ...]; paint and
+    idr [N, S] int32. Every stripe is its own sequence with its own
+    reference window, so the sessions fold into the stripe axis: damage,
+    one motion-search launch over all N*S stripes, tie collapse,
+    transform, quant and reconstruction run once over them. ``with_idr``
+    also codes every stripe as Intra16x16 and keeps it where ``idr`` is
+    set (the JAX lane's mixed program). The packer runs per
+    ``PACK_FRAMES`` sessions' stripes, each session compacting on its
+    own: ``entropy="device"`` packs CAVLC P slices (IDR stripes masked
+    out: they recover from their exact levels on the host),
+    ``"sparse"`` the block-sparse levels. Returns (heads [N, prefix],
+    flat16 [N, S, words], y, cb, cr, ref_y, ref_cb, ref_cr [N, ...]); row
+    n of the heads is session n's one-session buffer, byte for byte."""
+    N = rgbs.shape[0]
+    S = n_stripes
+    NS = N * S
+    y, cb, cr = prepare_planes(rgbs, pad_h, pad_w)            # [N, ...]
+
+    def fold(t):
+        return t.reshape(-1, t.shape[-1])
+
+    paint = paint.reshape(-1)
+    enc, damage, update, nry, nrcb, nrcr = _frame_p_core(
+        fold(y), fold(cb), fold(cr), fold(prev_y), fold(prev_cb),
+        fold(prev_cr), fold(ref_y), fold(ref_cb), fold(ref_cr), paint, qp,
+        paint_qp, n_stripes=NS, sh=sh, search=search)
+    upd_p = update
+    if with_idr:
+        idr_f = idr.reshape(-1) != 0
+        ys, cbs, crs = (_stripe_view(fold(p), NS, h) for p, h in
+                        ((y, sh), (cb, sh // 2), (cr, sh // 2)))
+        enc_i = encode_stripe_idr(ys, cbs, crs, qp)
+        enc = _merge_idr(enc, enc_i, idr_f)
+        damage = damage | idr_f
+        update = update | idr_f
+        upd_p = update & ~idr_f
+        sel = idr_f[:, None, None]
+        nry = torch.where(sel, enc_i.recon_y, _stripe_view(nry, NS, sh))
+        nrcb = torch.where(sel, enc_i.recon_cb,
+                           _stripe_view(nrcb, NS, sh // 2))
+        nrcr = torch.where(sel, enc_i.recon_cr,
+                           _stripe_view(nrcr, NS, sh // 2))
+    flat16 = _pack_levels(enc)                                 # [NS, words]
+    if entropy == "device":
+        def pack(lo, hi):
+            rows = slice(lo * S, hi * S)
+            return dcav.pack_p_frame(
+                enc.mv[rows], enc.luma[rows], enc.chroma_dc[rows],
+                enc.chroma_ac[rows], damage[rows], upd_p[rows],
+                mb_w=pad_w // MB, mb_h=sh // MB,
+                max_stripe_bytes=max_stripe_bytes, frames=hi - lo)
+    else:
+        def pack(lo, hi):
+            rows = slice(lo * S, hi * S)
+            return _pack_sparse(flat16[rows], damage[rows], update[rows],
+                                cap_frac=cap_frac, frames=hi - lo)
+
+    return (_chunked_heads(pack, N, prefix), flat16.reshape(N, S, -1),
+            y, cb, cr, nry.reshape(prev_y.shape),
+            nrcb.reshape(prev_cb.shape), nrcr.reshape(prev_cr.shape))
+
+
 def _chunked_heads(pack, B: int, prefix: int) -> torch.Tensor:
     """[B, prefix] heads of B frames' buffers, packed ``PACK_FRAMES``
     frames per call by ``pack(lo, hi)`` ([hi - lo, L]; row b is frame b's

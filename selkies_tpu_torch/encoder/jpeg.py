@@ -100,6 +100,29 @@ def encode_body(frame: torch.Tensor, prev: torch.Tensor,
     return yq, cbq, crq, damage, frame
 
 
+def encode_body_sessions(frames: torch.Tensor, prev: torch.Tensor,
+                         recip_y: torch.Tensor, recip_c: torch.Tensor,
+                         qsel: torch.Tensor, *, stripe_h: int):
+    """:func:`encode_body` for N sessions at once (the JAX lane ``vmap``s
+    ``_encode_body`` over them).
+
+    The session axis folds into the rows: the planes are ``[N*H, W]``
+    and ``qsel`` ``[N, S]`` flattens to the per-(session, stripe) table
+    index, so one DCT+quant launch carries Y, Cb and Cr of every session.
+    Folding is exact because every stage is per pixel, per 2x2 pair or per
+    8x8 block, and no block or stripe crosses a session's rows (H is a
+    multiple of ``stripe_h``, itself a multiple of 16).
+
+    frames/prev [N, H, W, 3] uint8; returns the folded coefficient planes
+    (yq [N*H/8, W/8, 64], cbq/crq [N*H/16, W/16, 64]), damage [N, S] and
+    the folded frame batch [N*H, W, 3] (the next ``prev``)."""
+    n, h, w, _ = frames.shape
+    yq, cbq, crq, damage, new_prev = encode_body(
+        frames.reshape(n * h, w, 3), prev.reshape(n * h, w, 3), recip_y,
+        recip_c, qsel.reshape(-1), stripe_h=stripe_h)
+    return yq, cbq, crq, damage.reshape(n, h // stripe_h), new_prev
+
+
 class DeviceStep:
     """The per-geometry step: encode body + packer → one fetchable buffer.
 

@@ -1,7 +1,9 @@
 """Host/device transfers of the encoders: the host-to-device staging ring
 (counterpart of ``StagingRing``/``StagingTicket`` in
-``selkies_tpu/encoder/h264_device.py``) and :class:`HostCopy`, the
-device-to-host copy that stands in for JAX's ``copy_to_host_async``.
+``selkies_tpu/encoder/h264_device.py``), :class:`SlotUploads`, which puts
+host frames into the slots of a lane's device batch, and
+:class:`HostCopy`, the device-to-host copy that stands in for JAX's
+``copy_to_host_async``.
 
 The JAX ring donates device buffers so an upload can overlap the previous
 frame's encode. PyTorch has no donation; the port gets the same overlap
@@ -170,3 +172,66 @@ class HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+def pad_into(dst: np.ndarray, frame: np.ndarray) -> None:
+    """Write ``frame`` [h, w, 3] into ``dst`` [H, W, 3] (H >= h, W >= w)
+    with the edge replicated into the pad (``np.pad(mode="edge")``),
+    without an intermediate padded copy."""
+    h, w = frame.shape[:2]
+    dst[:h, :w] = frame
+    if h < dst.shape[0]:
+        dst[h:, :w] = frame[h - 1]
+    if w < dst.shape[1]:
+        dst[:, w:] = dst[:, w - 1:w]
+
+
+class SlotUploads:
+    """Host frames into slots of a device batch ``[N, H, W, 3]``.
+
+    On the card each upload goes through one of ``depth`` pinned host
+    batches, in turn, with a ``non_blocking`` copy per slot on the given
+    stream and an event after them; a pinned batch is written again only
+    after its last copies have landed, so the host never overwrites memory
+    a copy still reads. The device batch needs no guard: a lane's steps
+    and uploads are all queued on one stream, in order. On the CPU a slot
+    is written directly."""
+
+    def __init__(self, shape, depth: int, device) -> None:
+        self.shape = tuple(shape)
+        self.depth = max(1, int(depth))
+        self.device = torch.device(device)
+        self._host: List[Optional[torch.Tensor]] = [None] * self.depth
+        self._events: List[Optional["torch.cuda.Event"]] = \
+            [None] * self.depth
+        self._next = 0
+        #: bytes copied host to device (observability)
+        self.bytes_total = 0
+
+    def upload(self, dst: torch.Tensor, frames, stream=None) -> None:
+        """``frames``: slot index -> host uint8 frame (padded to the slot
+        here if smaller)."""
+        if not frames:
+            return
+        if self.device.type != "cuda":
+            for n, f in frames.items():
+                pad_into(dst[n].numpy(), np.asarray(f, np.uint8))
+            self.bytes_total += sum(dst[n].numel() for n in frames)
+            return
+        k = self._next
+        self._next = (k + 1) % self.depth
+        if self._host[k] is None:
+            self._host[k] = torch.empty(self.shape, dtype=torch.uint8,
+                                        pin_memory=True)
+            self._events[k] = torch.cuda.Event()
+        else:
+            self._events[k].synchronize()
+        host = self._host[k]
+        view = host.numpy()
+        for n, f in frames.items():
+            pad_into(view[n], np.asarray(f, np.uint8))
+        with torch.cuda.stream(stream):
+            for n in frames:
+                dst[n].copy_(host[n], non_blocking=True)
+            self._events[k].record(stream)
+        self.bytes_total += sum(dst[n].numel() for n in frames)

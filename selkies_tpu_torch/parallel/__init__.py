@@ -1,0 +1,27 @@
+"""Multi-session lanes on one card (the port's ``selkies_tpu/parallel/``).
+
+A **lane** batches N sessions of one geometry and profile into one device
+step per tick: the JPEG lane (:class:`MeshStripeEncoder`) and the striped
+H.264 lane (:class:`~.mesh_h264.MeshH264Encoder`) fold the session axis
+into the frame's rows, so one launch of each kernel carries every session,
+and each session's bytes equal its solo encoder's. The scheduler
+(:mod:`.coordinator`) owns the lanes: admission, growth and retirement,
+slot health, quarantine and live migration.
+
+The names match the JAX package's. :class:`Mesh` is a ("session",
+"stripe") grid of ``torch.device``\\ s; a lane runs on one card.
+"""
+
+from .mesh import (BatchedSessionEncoder, Mesh, MeshStripeEncoder,
+                   make_batched_entropy_step, make_batched_step, make_mesh,
+                   parse_mesh_spec)
+
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "parse_mesh_spec",
+    "make_batched_step",
+    "make_batched_entropy_step",
+    "BatchedSessionEncoder",
+    "MeshStripeEncoder",
+]

@@ -11,17 +11,23 @@ server runs).
 * :class:`FaultInjector` — named fault points checked at the real call
   sites, armed via ``SELKIES_TPU_FAULTS`` so tests prove recovery
   end-to-end instead of assuming it;
-* :class:`InProcessClient` — the in-process websocket stand-in.
+* :class:`SlotHealth` — per-slot error EWMAs whose quarantine verdicts
+  drive the lane scheduler's live migration (``parallel/coordinator.py``);
+* :class:`InProcessClient` — the in-process websocket stand-in, and
+  :class:`FakeMeshEncoder`/:class:`FakeStripe`, the device-free lane
+  encoder the scheduler tests drive.
 """
 
 from .faults import DEFAULT_HANG_S, POINTS, FaultInjected, FaultInjector
 from .ladder import RUNGS, DegradationLadder, EncoderFault
+from .slot_health import SlotHealth
 from .supervisor import (BACKOFF, FAILED, IDLE, RUNNING, STOPPED, Supervisor,
                          backoff_delay)
-from .testing import InProcessClient
+from .testing import FakeMeshEncoder, FakeStripe, InProcessClient
 
 __all__ = [
     "BACKOFF", "DEFAULT_HANG_S", "DegradationLadder", "EncoderFault",
-    "FAILED", "FaultInjected", "FaultInjector", "IDLE", "InProcessClient",
-    "POINTS", "RUNGS", "RUNNING", "STOPPED", "Supervisor", "backoff_delay",
+    "FAILED", "FakeMeshEncoder", "FakeStripe", "FaultInjected",
+    "FaultInjector", "IDLE", "InProcessClient", "POINTS", "RUNGS",
+    "RUNNING", "STOPPED", "SlotHealth", "Supervisor", "backoff_delay",
 ]

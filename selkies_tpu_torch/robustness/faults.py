@@ -6,7 +6,8 @@ its recovery behavior is *provable*: tests must be able to crash a
 capture loop, stall a fetch, or drop a websocket on demand and then assert
 restart counts and ladder transitions. This module provides named fault
 points that are checked at the real call sites
-(``server/data_server._capture_loop`` and the async driver's harvest),
+(``server/data_server._capture_loop``, the async driver's harvest and
+the lane scheduler's tick),
 armed either programmatically or from the ``SELKIES_TPU_FAULTS``
 environment variable / ``tpu_faults`` setting. One spec string means the
 same to this server and to the JAX package's.
@@ -40,9 +41,9 @@ Fault points and their semantics at the call site:
                     become mesh faults
 ==================  =======================================================
 
-The two ``mesh.*`` points are kept so that a spec naming them parses here
-too; nothing in the port checks them until the mesh coordinator
-(``parallel/``) is ported.
+The two ``mesh.*`` points are checked by the lane scheduler
+(``parallel/coordinator.py``): ``mesh.tick_raise`` at the top of its tick,
+``mesh.slot_raise`` where a slot's frame is taken into a lane's batch.
 
 A check on a disarmed point is a dict lookup — the production cost of the
 harness is negligible, and a server with no faults armed never allocates.

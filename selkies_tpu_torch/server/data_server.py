@@ -20,10 +20,18 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What this slice keeps:
 * ``CLIENT_FRAME_ACK`` and ``_f`` into the display's
   :class:`~.backpressure.BackpressureState`, re-evaluated every
   ``CHECK_INTERVAL_S``; ``START_VIDEO``/``STOP_VIDEO``;
+* multi-session lanes (``tpu_mesh``): with a mesh spec, a display of the
+  ``jpeg`` or ``x264enc-striped`` profile at its ``device`` rung rides a
+  slot of a lane (``parallel/``; one scheduler per geometry and profile)
+  instead of its own encoder; a new display is admitted, queued or shed
+  (``KILL server_full``) by the lanes' live capacity, and a session the
+  scheduler migrates off a sick slot restarts its frame ids
+  (``PIPELINE_RESETTING``) with its restart budget forgiven;
 * close.
 
-Uploads, input, resize/reconfigure, the mesh, stats, metrics and the
-flight recorder are not ported yet. An unknown encoder profile raises.
+Uploads, input, resize/reconfigure, stats, metrics, the flight recorder
+and the wire edge's rate limits and load shedding are not ported yet. An
+unknown encoder profile raises.
 
 Concurrency model (same invariant as the JAX server): one asyncio loop
 owns all mutable state — the ladder included: errors that the encoder's
@@ -64,6 +72,11 @@ logger = logging.getLogger("selkies_tpu_torch.server")
 #: largest accepted client display dimension (one frame stays < ~200 MB)
 MAX_DISPLAY_DIM = 8192
 
+#: bounded lane geometry-bucket count: each bucket's lanes hold device
+#: planes for all their slots. Joins past the cap are served by solo
+#: pipelines — the admission verdict and the acquire-time fallback must
+#: agree on this number, or verdicts shed clients solo could serve.
+MESH_BUCKET_CAP = 4
 
 
 def _clamp_dim(v: int) -> int:
@@ -273,6 +286,23 @@ class DataStreamingServer:
         #: fire-and-forget helpers (ws.drop closes, failed-display
         #: teardown), referenced so they are not collected mid-flight
         self._bg_tasks: Set[asyncio.Task] = set()
+        #: multi-session lanes (tpu_mesh): one scheduler per (geometry,
+        #: profile) bucket, built at the bucket's first join
+        self.mesh_coordinators: Dict[Tuple[int, int, str], Any] = {}
+        #: scheduler constructor override (tests): same signature as
+        #: MeshEncodeCoordinator — runs the real scheduler over injected
+        #: (device-free) lane encoders
+        self.coordinator_factory: Optional[Callable] = None
+        #: geometries whose scheduler construction failed — scoped per
+        #: geometry, so one bad bucket does not disable lanes for the rest
+        self._mesh_failed_geoms: Set[Tuple[int, int, str]] = set()
+        #: displays served from a lane, and displays the lanes could not
+        #: take that were served by a solo encoder instead
+        self.mesh_stats = {"bucketed": 0, "solo_fallback": 0}
+        #: display-plane admission: joins queued for a lane slot, and
+        #: joins shed with KILL server_full
+        self.edge_stats: Dict[str, int] = {"sessions_queued": 0,
+                                           "sessions_rejected": 0}
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -317,8 +347,89 @@ class DataStreamingServer:
         retired, self._retired = self._retired, []
         for enc in retired:
             await asyncio.to_thread(enc.join, 10.0)
+        for coord in self.mesh_coordinators.values():
+            coord.stop()
+        self.mesh_coordinators.clear()
         if self._stop_event:
             self._stop_event.set()
+
+    # ------------------------------------------------------------------
+    # display-plane admission: scheduler verdicts (docs/scaling.md)
+
+    def _mesh_profile_of(self, overrides: Dict[str, Any]) -> str:
+        return str(overrides.get("encoder", self.settings.encoder))
+
+    def _display_admission_verdict(self, width: int, height: int,
+                                   overrides: Dict[str, Any]) -> str:
+        """``admit`` / ``queue`` / ``shed`` for a NEW display join.
+
+        The flat ``max_displays`` cap is the hard backstop; below it the
+        verdict comes from live lane capacity: a join whose geometry
+        bucket has a free or growable slot is admitted, a join into a
+        momentarily full scheduler queues (leave churn frees slots within
+        the queue window), and a full scheduler sheds. Displays the lanes
+        cannot serve (other profiles, watermark, failed geometries) are
+        admitted toward their solo pipelines, and ``mesh_overflow_solo``
+        sends overflow to solo pipelines wholesale. (The JAX server also
+        sheds while its wire edge is load shedding; the port has no load
+        shedding yet.)"""
+        maxd = int(self.settings.max_displays or 0)
+        if maxd and len(self.display_clients) >= maxd:
+            return "shed"
+        if not str(self.settings.tpu_mesh) or \
+                bool(self.settings.mesh_overflow_solo.value):
+            return "admit"
+        profile = self._mesh_profile_of(overrides)
+        if profile not in ("jpeg", "x264enc-striped") or \
+                str(self.settings.watermark_path):
+            return "admit"          # solo-served by design, not overflow
+        geom = (_clamp_dim(width), _clamp_dim(height), profile)
+        coord = self.mesh_coordinators.get(geom)
+        if coord is None:
+            # a fresh bucket can be built, or past the bucket cap the
+            # acquire path serves the join solo: admit toward either,
+            # never queue on a condition that cannot resolve
+            return "admit"
+        try:
+            cap = coord.capacity()
+        except Exception:
+            return "admit"
+        if cap["slots_free"] + cap["growable_slots"] > 0:
+            return "admit"
+        return "queue"
+
+    async def _await_display_admission(self, width: int, height: int,
+                                       overrides: Dict[str, Any]) -> str:
+        """Hold a queued join for up to ``admission_queue_ms`` waiting for
+        a lane slot to free, then resolve to admit or shed. Bounded by
+        construction: a queued client is never parked forever."""
+        self.edge_stats["sessions_queued"] += 1
+        wait_ms = int(self.settings.admission_queue_ms or 0)
+        deadline = time.monotonic() + wait_ms / 1000.0
+        while True:
+            verdict = self._display_admission_verdict(
+                width, height, overrides)
+            if verdict != "queue":
+                return verdict
+            if time.monotonic() >= deadline:
+                return "shed"
+            await asyncio.sleep(0.025)
+
+    def scheduler_stats(self) -> Optional[Dict[str, int]]:
+        """Aggregate live lane capacity across geometry buckets (None when
+        lanes are off) — the admission verdicts' input."""
+        if not str(self.settings.tpu_mesh):
+            return None
+        agg = {"slots_free": 0, "growable_slots": 0, "slots_total": 0,
+               "quarantined_slots": 0, "active_sessions": 0, "lanes": 0}
+        for coord in self.mesh_coordinators.values():
+            try:
+                cap = coord.capacity()
+            except Exception:
+                continue
+            for k in agg:
+                agg[k] += int(cap.get(k, 0))
+        return agg
 
     # ------------------------------------------------------------------
     # connection handling
@@ -431,6 +542,27 @@ class DataStreamingServer:
                 logger.warning("ignoring bad client setting %s=%r", key, value)
 
         st = self.display_clients.get(display_id)
+        if st is None:
+            # admission control on the display plane: each display is a
+            # capture+encode pipeline, far heavier than a viewer — the
+            # verdict comes from live lane capacity (admit / queue /
+            # shed), with max_displays as the hard backstop above it
+            verdict = self._display_admission_verdict(
+                width or 1024, height or 768, applied)
+            if verdict == "queue":
+                verdict = await self._await_display_admission(
+                    width or 1024, height or 768, applied)
+            if verdict != "admit":
+                self.edge_stats["sessions_rejected"] += 1
+                logger.warning("display %s rejected (%s): %d displays live",
+                               display_id, verdict, len(self.display_clients))
+                await websocket.send("KILL server_full")
+                await websocket.close()
+                return
+            # the queue wait yields the loop: another handshake may have
+            # registered this display meanwhile — adopt it (superseding
+            # its client below), don't clobber it
+            st = self.display_clients.get(display_id)
         same_owner = st is not None and st.ws is websocket
         if st is not None and st.ws is not None and not same_owner:
             try:
@@ -571,19 +703,27 @@ class DataStreamingServer:
         st.frames_sent = 0
         # keep only the retired encoders whose threads still run
         self._retired = [e for e in self._retired if not e.join(0)]
-        try:
-            encoder = self.encoder_factory(
-                st.width, st.height, self.settings,
-                rung_overrides(st.overrides, rung), device=self.device)
-        except Exception as e:
-            # a rung that cannot be built steps the ladder like any other
-            # encoder failure, instead of being retried forever
-            raise EncoderFault(f"encoder construction failed: {e!r}") from e
+        # at the device rung a lane slot, when lanes serve this display;
+        # a lower rung (or no slot) builds the display's own encoder
+        encoder = self._acquire_mesh_encoder(st, fps) \
+            if rung == "device" else None
+        if encoder is None:
+            try:
+                encoder = self.encoder_factory(
+                    st.width, st.height, self.settings,
+                    rung_overrides(st.overrides, rung), device=self.device)
+            except Exception as e:
+                # a rung that cannot be built steps the ladder like any
+                # other encoder failure, instead of being retried forever
+                raise EncoderFault(
+                    f"encoder construction failed: {e!r}") from e
         #: frames the encoder's threads lost (on_error runs in the driver
         #: thread, or in poll for the threaded adapter); this loop counts
-        #: them on the ladder, which only the event loop touches
+        #: them on the ladder, which only the event loop touches. A lane
+        #: facade has no on_error: the scheduler charges its slot instead
         errors: deque = deque()
-        encoder.on_error = errors.append
+        if hasattr(encoder, "on_error"):
+            encoder.on_error = errors.append
         if getattr(encoder, "faults", False) is None:
             # the async driver checks fetch.hang at its own harvest site
             encoder.faults = faults
@@ -611,10 +751,25 @@ class DataStreamingServer:
             accepted_at = time.monotonic()
             logger.info("capture loop started for %s (%dx%d@%g, rung=%s)",
                         st.display_id, st.width, st.height, fps, rung)
+            consume_migration = getattr(encoder, "consume_migration", None)
             while True:
                 sup.beat()
                 faults.maybe_raise("capture.raise")
                 await faults.maybe_hang("capture.stall")
+                if consume_migration is not None and consume_migration():
+                    # the scheduler live-migrated this session off a
+                    # quarantined slot: same recovery grammar as a
+                    # supervised restart — frame ids restart with
+                    # PIPELINE_RESETTING, the new slot's reset forces a
+                    # keyframe, and the restart budget is forgiven (the
+                    # scheduler absorbed the fault; the session is healthy)
+                    logger.warning("display %s migrated to a healthy "
+                                   "lane slot; resetting frame ids",
+                                   st.display_id)
+                    frame_id = 0
+                    await self._reset_frame_ids_and_notify(st)
+                    sup.forgive()
+                    self._broadcast_health()
                 # clean-probe evidence for the ladder: the tick exercised
                 # the encoder (submit or delivery) and surfaced no error
                 failures_before = st.ladder.failures_total
@@ -699,6 +854,77 @@ class DataStreamingServer:
             st.encoder = None
             self._retire(encoder)
 
+    def _acquire_mesh_encoder(self, st: DisplayState, fps: float):
+        """A session facade onto the lane scheduler of the display's
+        (geometry, profile) bucket when ``tpu_mesh`` is set; None → the
+        display's own encoder.
+
+        Lanes serve the ``jpeg`` and ``x264enc-striped`` profiles with the
+        server-wide quality settings; the full-frame ``x264enc`` profile,
+        a watermark, a failed geometry, the bucket cap or no free slot
+        fall back to a solo encoder (counted in ``mesh_stats``)."""
+        spec = str(self.settings.tpu_mesh)
+        if not spec:
+            return None
+        profile = self._mesh_profile_of(st.overrides)
+        if profile not in ("jpeg", "x264enc-striped"):
+            return None
+        if str(self.settings.watermark_path):
+            # the lane encoders have no watermark stage; a configured
+            # watermark must not silently vanish — keep the solo pipeline
+            logger.warning(
+                "tpu_mesh ignored for %s: watermark_path requires the solo "
+                "JPEG pipeline", st.display_id)
+            return None
+        geom = (st.width, st.height, profile)
+        if geom in self._mesh_failed_geoms:
+            self.mesh_stats["solo_fallback"] += 1
+            return None
+        coord = self.mesh_coordinators.get(geom)
+        if coord is None:
+            if len(self.mesh_coordinators) >= MESH_BUCKET_CAP:
+                self.mesh_stats["solo_fallback"] += 1
+                logger.warning(
+                    "lanes: bucket limit reached; %s at %dx%d uses a solo "
+                    "encoder", st.display_id, *geom[:2])
+                return None
+            try:
+                from ..parallel.coordinator import MeshEncodeCoordinator
+
+                factory = self.coordinator_factory or MeshEncodeCoordinator
+                coord = factory(
+                    spec, int(self.settings.tpu_sessions_per_chip),
+                    st.width, st.height, settings=self.settings,
+                    framerate=fps, profile=profile, device=self.device)
+                # mesh.tick_raise / mesh.slot_raise check the server's
+                # injector at the scheduler's sites
+                coord.faults = self.faults
+                self.mesh_coordinators[geom] = coord
+                logger.info(
+                    "lanes: %s → %s session slots/lane (max %s lanes) at "
+                    "%dx%d (bucket %d)", spec,
+                    getattr(coord, "slots_per_lane", "?"),
+                    getattr(coord, "max_lanes", "?"), st.width, st.height,
+                    len(self.mesh_coordinators))
+            except Exception:
+                logger.exception(
+                    "lane scheduler for %dx%d (%s) unavailable; that "
+                    "geometry uses solo encoders", *geom)
+                self._mesh_failed_geoms.add(geom)
+                self.mesh_stats["solo_fallback"] += 1
+                return None
+        facade = coord.acquire(st.width, st.height)
+        if facade is None:
+            # races the admission verdict lost (two joins for the last
+            # slot) land here: serve them solo rather than dropping a
+            # session the front door already admitted
+            self.mesh_stats["solo_fallback"] += 1
+            logger.warning("lanes: no slot for %s at %dx%d; solo encoder",
+                           st.display_id, st.width, st.height)
+        else:
+            self.mesh_stats["bucketed"] += 1
+        return facade
+
     def _emit_frame(self, st: DisplayState, frame_id: int, stripes,
                     encoder) -> None:
         viewers = self._viewers_of(st.display_id)
@@ -782,8 +1008,9 @@ class DataStreamingServer:
 
     def _health_payload(self) -> str:
         """The ``system,health`` wire message: per-display supervision,
-        watchdog and degradation-ladder state (the JAX server's keys, less
-        the flight recorder's ``stages`` and the mesh, not ported yet)."""
+        watchdog and degradation-ladder state, and the lane scheduler's
+        slot health per bucket (``mesh``) — the JAX server's keys, less
+        the flight recorder's ``stages``, not ported yet."""
         displays: Dict[str, Any] = {}
         for did, st in self.display_clients.items():
             sup = st.supervisor.stats() if st.supervisor is not None else {}
@@ -803,7 +1030,32 @@ class DataStreamingServer:
                 d["frames_dropped"] = est.get("frames_dropped", 0)
                 d["encode_errors"] = est.get("encode_errors", 0)
             displays[did] = d
-        return pack_system_health(displays)
+        # slot health per bucket: a quarantined slot or a live migration
+        # must reach the client overlay, not only the scheduler's stats()
+        mesh: Dict[str, Any] = {}
+        for (w, h, profile), coord in list(self.mesh_coordinators.items()):
+            try:
+                cs = coord.stats()
+            except Exception:
+                continue
+            mesh[f"{w}x{h}/{profile}"] = {
+                "active_sessions": cs.get("active_sessions", 0),
+                "lanes": cs.get("lanes", 0),
+                "capacity_slots": cs.get("capacity_slots", 0),
+                "free_slots": cs.get("free_slots", 0),
+                "quarantined_slots": cs.get("quarantined_slots", 0),
+                "slot_errors": cs.get("slot_errors", []),
+                "tick_errors_total": cs.get("tick_errors_total", 0),
+                "worker_restarts_total":
+                    cs.get("worker_restarts_total", 0),
+                "inflight_batches": cs.get("inflight_batches", 0),
+                "migrations_total": cs.get("migrations_total", 0),
+                # a lane spans one card (no split-frame encoding)
+                "sfe_shards": 1,
+                "sfe_concat_ms_p50": cs.get("sfe_concat_ms_p50", 0.0),
+                "lane_detail": cs.get("lane_detail", []),
+            }
+        return pack_system_health(displays, mesh=mesh or None)
 
     def _broadcast_health(self) -> None:
         try:

@@ -608,3 +608,116 @@ def test_first_frame_at_each_rung_equals_cpu(cuda_device):
                               for m in got[1])
         if rung != "jpeg":
             assert all(m[1] == 1 for m in got[1])          # IDR
+
+
+LANE_W, LANE_H, LANE_N = 256, 128, 4
+
+
+def _lane(kind, device):
+    from selkies_tpu_torch.parallel.mesh import MeshStripeEncoder, Mesh
+    from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder
+
+    mesh = Mesh([[torch.device(device)]])
+    kw = dict(stripe_h=32, paint_over_trigger_frames=2)
+    if kind == "jpeg":
+        return MeshStripeEncoder(mesh, LANE_N, LANE_W, LANE_H, **kw)
+    return MeshH264Encoder(mesh, LANE_N, LANE_W, LANE_H,
+                           entropy=kind.split("-")[1], **kw)
+
+
+def _lane_script():
+    """Per tick: each session's frame (None: idle) and the controls before
+    it — a join, motion, an idle slot with a keyframe request, the
+    keyframe, a reset slot, static ticks to paint-over."""
+    src = [SyntheticSource(LANE_W, LANE_H, pattern="scroll", seed=10 + n)
+           for n in range(LANE_N)]
+    seq = [[s.next_frame() for s in src] for _ in range(4)]
+    fresh = SyntheticSource(LANE_W, LANE_H, pattern="desktop",
+                            seed=3).next_frame()
+    return [((), seq[0]), ((), seq[1]),
+            ((("force_keyframe", 2),), [seq[2][0], seq[2][1], None,
+                                        seq[2][3]]),
+            ((), [seq[2][0], seq[2][1], seq[1][2], seq[2][3]]),
+            ((("reset_session", 1),), [seq[3][0], fresh, seq[1][2],
+                                       seq[3][3]]),
+            ((), [seq[3][0], fresh, seq[1][2], None]),
+            ((), [seq[3][0], fresh, seq[1][2], seq[3][3]]),
+            ((), [seq[3][0], fresh, seq[1][2], seq[3][3]])]
+
+
+def _lane_bytes(out):
+    return [[(s.y_start, getattr(s, "is_key", None),
+              getattr(s, "annexb", None) or s.jpeg) for s in sess]
+            for sess in out]
+
+
+def _lane_drive(lane, window):
+    """The script's ticks through ``lane`` with up to ``window`` dispatched
+    ticks in flight (the scheduler's window), harvested in order. The
+    paint-over history advances at harvest, so a window of 2 decides
+    paint-over a tick later than one tick at a time: compare runs made
+    with the same window."""
+    out, inflight = [], []
+    for ctl, frames in _lane_script():
+        for name, arg in ctl:
+            getattr(lane, name)(arg)
+        inflight.append(lane.dispatch(frames))
+        if len(inflight) == window:
+            out.append(lane.harvest(inflight.pop(0)))
+    return out + [lane.harvest(p) for p in inflight]
+
+
+@pytest.mark.parametrize("window", [1, 2])
+@pytest.mark.parametrize("kind", ["jpeg", "h264-device", "h264-host"])
+def test_lane_on_card_equals_cpu(cuda_device, kind, window):
+    """A 4-session lane at 256x128 (its idle slot, keyframe request, reset
+    and paint-over included): every session's bytes on the card equal the
+    same lane's on the CPU, tick by tick, one tick at a time and with two
+    ticks in flight."""
+    want = _lane_drive(_lane(kind, "cpu"), window)
+    got = _lane_drive(_lane(kind, cuda_device), window)
+    for k, ((wo, wb), (go, gb)) in enumerate(zip(want, got)):
+        assert _lane_bytes(go) == _lane_bytes(wo), k
+        assert list(gb) == list(wb), k
+    assert len(got) == len(_lane_script())
+    assert any(any(sess) for out, _ in got for sess in out)
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "h264-device", "h264-host"])
+def test_lane_tick_launches_each_kernel_once(cuda_device, kind):
+    """One lane tick over every session: one DCT+quant launch (JPEG) or
+    one motion-search launch (H.264), whatever the number of sessions."""
+    lane = _lane(kind, cuda_device)
+    counter = dct8_quant_zigzag if kind == "jpeg" else me_mc_stripes
+    other = me_mc_stripes if kind == "jpeg" else dct8_quant_zigzag
+    c0, o0 = counter.launches, other.launches
+    for ctl, frames in _lane_script():
+        lane.encode_frames(frames)
+    assert counter.launches - c0 == len(_lane_script())
+    assert other.launches == o0
+
+
+def test_lane_takes_frames_made_on_the_card(cuda_device):
+    """Per-slot frame tensors (DeviceScrollSource, whose 128 rows are the
+    padded height) and a stacked device batch go in without an upload;
+    their bytes equal the same frames from the host."""
+    from selkies_tpu_torch.parallel.mesh import Mesh
+    from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder
+
+    mesh = Mesh([[cuda_device]])
+    src = [DeviceScrollSource(LANE_W, LANE_H, seed=n, device=cuda_device)
+           for n in range(LANE_N)]
+    a = MeshH264Encoder(mesh, LANE_N, LANE_W, LANE_H, stripe_h=32)
+    b = MeshH264Encoder(mesh, LANE_N, LANE_W, LANE_H, stripe_h=32)
+    for k in range(4):
+        frames = [s.next_frame() for s in src]
+        if k == 1:
+            frames[3] = None
+        # a stacked batch is not kept for re-presenting (as in the JAX
+        # lane), so it comes last
+        fa = torch.stack(frames) if k == 3 else frames
+        oa, _ = a.encode_frames(fa)
+        ob, _ = b.encode_frames([None if f is None else f.cpu().numpy()
+                                 for f in frames])
+        assert _lane_bytes(oa) == _lane_bytes(ob), k
+    assert a.h2d_bytes_total == 0 and b.h2d_bytes_total > 0

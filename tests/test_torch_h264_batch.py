@@ -25,6 +25,7 @@ its Pallas kernel (``SELKIES_TPU_ME=scan``), as tests/test_torch_h264.py
 does; each JAX reference runs once per module (module-scoped fixture)."""
 
 import asyncio
+import functools
 import json
 
 import numpy as np
@@ -510,13 +511,20 @@ N_SERVED = 7
 
 class _FiniteSource:
     """The first N_SERVED frames of a moving sequence, then nothing (a
-    source that runs dry, so no frame is dropped whatever the encoder's
-    pace and both servers encode the same frames)."""
+    source that runs dry, so both servers encode the same frames).
 
-    def __init__(self, w, h, fps, **_kw):
+    The capture loop drops a frame at the edge when the display's async
+    driver has no room in its submit queue (``try_submit`` returns None),
+    as it must for a live desktop. A first-use build of the host coder
+    stalls the driver for seconds, and this source's frames are finite, so
+    it hands out its next frame only while the queue has room (``room``):
+    then no frame is dropped, whatever the encoder's pace."""
+
+    def __init__(self, w, h, fps, room=None, **_kw):
         assert (w, h) == (W, H)
         self._frames = [np.roll(_base(), 3 * k, axis=0)
                         for k in range(N_SERVED)]
+        self._room = room
 
     def start(self):
         pass
@@ -525,6 +533,8 @@ class _FiniteSource:
         pass
 
     def next_frame(self):
+        if self._room is not None and not self._room():
+            return None
         return self._frames.pop(0) if self._frames else None
 
 
@@ -536,8 +546,13 @@ def _serve(monkeypatch, batch):
 
     async def run():
         server = tds.DataStreamingServer(_settings("x264enc-striped"),
-                                         source_factory=_FiniteSource,
                                          device="cpu", host="127.0.0.1")
+
+        def room():
+            enc = server.display_clients["primary"].encoder
+            return enc.stats()["submit_queue_depth"] < enc.submit_depth
+
+        server.source_factory = functools.partial(_FiniteSource, room=room)
         ws = InProcessClient()
         task = asyncio.create_task(server.ws_handler(ws))
         ws.feed("SETTINGS," + json.dumps({

@@ -60,6 +60,11 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.encoder.h264\n"
         "import selkies_tpu_torch.encoder.h264_device\n"
         "import selkies_tpu_torch.encoder.device_cavlc\n"
+        "import selkies_tpu_torch.parallel\n"
+        "import selkies_tpu_torch.parallel.coordinator\n"
+        "import selkies_tpu_torch.robustness.slot_health\n"
+        "from selkies_tpu_torch.parallel import MeshStripeEncoder, parse_mesh_spec\n"
+        "from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder\n"
         "from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder\n"
         "from selkies_tpu_torch.encoder.pipeline import ThreadedEncoderAdapter\n"
         "import numpy as np\n"
@@ -71,6 +76,12 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "assert len(ad.flush()[0][1]) == 1\n"
         "ad.close()\n"
         "assert ad.join(10.0)\n"
+        "mesh = parse_mesh_spec('session:1', ['cpu'])\n"
+        "f = np.zeros((2, 16, 32, 3), np.uint8)\n"
+        "out, _ = MeshStripeEncoder(mesh, 2, 32, 16, stripe_h=16).encode_frames(f)\n"
+        "assert [len(o) for o in out] == [1, 1]\n"
+        "out, _ = MeshH264Encoder(mesh, 2, 32, 16, stripe_h=16).encode_frames(f)\n"
+        "assert [len(o) for o in out] == [1, 1]\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'selkies_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('isolated')\n"
@@ -159,6 +170,8 @@ def test_kernel_build_is_lazy_and_sources_ship():
             "import selkies_tpu_torch.ops.dct_quant\n"
             "import selkies_tpu_torch.ops.me_mc\n"
             "import selkies_tpu_torch.encoder.h264\n"
+            "import selkies_tpu_torch.parallel.coordinator\n"
+            "import selkies_tpu_torch.parallel.mesh_h264\n"
             "from selkies_tpu_torch import _build\n"
             "assert _build._loaded == {} and _build.ptxas_report == {}\n"
             "print(_build.kernel_dir())\n")
