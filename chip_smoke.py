@@ -5,6 +5,9 @@
     python3 chip_smoke.py --dct-planes-of DIR
         # device time of each launch that DIR's checkout of the port makes
         # for one 1080p frame's DCT (an older tree's per-plane launches)
+    python3 chip_smoke.py --served-against DIR
+        # the served phases of this checkout and of DIR's, alternating
+        # in one call (first frame after SETTINGS, frames/s)
 
 It builds the port's CUDA kernels (and the g++ host coders: H.264 CAVLC and
 the JPEG scan) from the checkout's sources, holds each kernel against its
@@ -69,7 +72,19 @@ display off a slot faulted by ``mesh.slot_raise`` while the others keep
 streaming. Both kernels are held against their plain versions at the
 lanes' shapes too.
 
-It prints one JSON object per line (setup, kernels, encoder, h264_encoder,
+The client plane: ``server_resize`` walks each served profile from
+1920x1080 to 1366x768, 2560x1440 and back, twice, then through a storm of
+20 resizes: every geometry's frame 1 equals a fresh encoder's, the kernel
+is launched for every frame (P frame) there, the storm costs at most 2
+reconfigurations, and the reserved memory stays flat; a lane display
+moves bucket and back while its cohabitants stream, and the drained
+bucket retires. ``server_edge`` evicts a stalled viewer, kills an abuser
+and takes a 64 MiB upload while a JPEG display streams, and reads the
+stats feed's ``gpu_stats``. Both kernels are held against their plain
+versions at the resized displays' shapes too.
+
+It prints one JSON object per line (setup, server_resize, server_edge as
+they end, then kernels, encoder, h264_encoder,
 h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
 h264_batch, server_h264_batch, server_faults, mesh_encoder, server_mesh,
 jpeg_device_frames, encoder_churn, h264_cross, profile, profile_h264,
@@ -121,6 +136,10 @@ DEVICE = "cuda"
 #: sessions per lane measured by mesh_encoder and held at the lane shapes
 #: by the kernel checks
 MESH_SIZES = (4, 8)
+#: the geometries server_resize walks a 1080p display through (1366 pads
+#: to 1376: 10 whole 128-pixel tiles of the motion kernel and a partial
+#: one), held at their shapes by the kernel checks
+RESIZE_GEOMS = ((1366, 768), (2560, 1440))
 
 
 def emit(obj) -> None:
@@ -208,8 +227,10 @@ def device_ms(fn, reps: int, what: str):
     return cuda_time_ms(fn, reps), "CUDA events"
 
 
-#: what each _settle call found and freed, by the phase it ran before
+#: what each _settle call found and freed, by the phase it ran before,
+#: and when (seconds since the script started)
 SETTLED = {}
+T_START = time.perf_counter()
 
 
 def _settle(before: str) -> None:
@@ -224,7 +245,8 @@ def _settle(before: str) -> None:
 
     reserved = torch.cuda.memory_reserved() if DEVICE == "cuda" else 0
     SETTLED[before] = {"gc_freed": gc.collect(),
-                       "reserved_mb_before": reserved >> 20}
+                       "reserved_mb_before": reserved >> 20,
+                       "at_s": time.perf_counter() - T_START}
 
 
 # ---------------------------------------------------------------------------
@@ -377,13 +399,75 @@ def _dct_at_lane(enc, n: int) -> dict:
             "unit": f"one lane tick of {n} 1080p frames, 1 launch"}
 
 
+def _dct_at_geometry(w: int, h: int) -> dict:
+    """dct8_quant_zigzag at the planes a served display of ``w`` x ``h``
+    hands it (the JPEG encoder's padding: width to a multiple of 16,
+    height to whole stripes), one launch for Y, Cb and Cr, against its
+    plain version exactly (max |diff| 0) on a scroll, a noise and a
+    desktop frame; kernel, plain and library times and the bound."""
+    import torch
+
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder
+    from selkies_tpu_torch.ops import dct as tdct
+    from selkies_tpu_torch.ops.dct_quant import (dct8_quant_zigzag,
+                                                 dct8_quant_zigzag_plain)
+
+    enc = JpegStripeEncoder(w, h, stripe_height=STRIPE, device=DEVICE)
+    max_err = n_coef = 0
+    for pattern, seed in (("scroll", 30), ("noise", 31), ("desktop", 32)):
+        planes = _main_path_planes(
+            SyntheticSource(w, h, pattern=pattern, seed=seed).next_frame(),
+            enc)
+        l0 = dct8_quant_zigzag.launches
+        outs = dct8_quant_zigzag(planes)
+        check(dct8_quant_zigzag.launches == l0 + 1,
+              f"{w}x{h}: the planes took more than one launch")
+        for got, (plane, recip, row) in zip(outs, planes):
+            want = dct8_quant_zigzag_plain(plane, recip, row)
+            torch.cuda.synchronize()
+            max_err = max(max_err,
+                          int((got.int() - want.int()).abs().max().item()))
+            n_coef += got.numel()
+    shape = "[%d,%d]+2x[%d,%d]" % (planes[0][0].shape + planes[1][0].shape)
+    check(max_err == 0, f"dct8 kernel vs plain at {w}x{h} {shape}: "
+          f"max |diff| {max_err}")
+    kernel_ms, how = device_ms(lambda: dct8_quant_zigzag(planes), 100,
+                               f"dct8_quant_zigzag/{w}x{h}")
+    plain_ms, plain_how = device_ms(
+        lambda: [dct8_quant_zigzag_plain(*p) for p in planes], 5,
+        f"dct8_quant_zigzag/{w}x{h}/plain")
+    blocks = [tdct.blockify(p) - 128.0 for p, _, _ in planes]
+    library_ms, library_how = device_ms(
+        lambda: [tdct.block_dct2_einsum(b) for b in blocks], 50,
+        f"dct8_quant_zigzag/{w}x{h}/library")
+    in_bytes = sum(p.numel() * 4 + r.numel() * 4 + i.numel() * 4
+                   for p, r, i in planes)
+    out_bytes = sum(p.numel() * 2 for p, _, _ in planes)
+    flops = sum(p.numel() // 64 for p, _, _ in planes) \
+        * (2 * 64 * 8 * 2 + 64 + 64)
+    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    return {"shape": shape, "max_abs_err": max_err, "n_coeffs": n_coef,
+            "ms": kernel_ms,
+            "ms_timing": f"{how} device time, warm L2, 100 reps",
+            "plain_ms": plain_ms, "plain_timing": plain_how,
+            "library_ms": library_ms, "library_timing": library_how,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": bound_ms / kernel_ms,
+            "unit": f"one {w}x{h} frame: Y, Cb, Cr, 1 launch"}
+
+
 def phase_kernel_check():
     """dct8_quant_zigzag (one launch for a frame's three planes) against
     its plain version, plane by plane, at the 1080p shapes, q40/q90 bands
     alternating by stripe; then kernel, plain and library (one
     torch.einsum DCT) times, the kernel's time when it is called once per
     plane, and the bound of the work. ``lane_shapes``: the same at the
-    shapes of a JPEG lane's tick of MESH_SIZES sessions."""
+    shapes of a JPEG lane's tick of MESH_SIZES sessions; ``resize_shapes``
+    the same at each RESIZE_GEOMS frame's padded planes."""
     import torch
 
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
@@ -482,6 +566,8 @@ def phase_kernel_check():
         "bytes": in_bytes + out_bytes,
         "flops": flops,
         "lane_shapes": {f"N{n}": _dct_at_lane(enc, n) for n in MESH_SIZES},
+        "resize_shapes": {f"{w}x{h}": _dct_at_geometry(w, h)
+                          for w, h in RESIZE_GEOMS},
     }
 
 
@@ -1182,15 +1268,15 @@ def _h264_planes(cur_np, ref_np, enc):
             cb0.reshape(S, sh // 2, pw // 2), cr0.reshape(S, sh // 2, pw // 2)]
 
 
-def _tie_pairs():
+def _tie_pairs(w: int = W, h: int = H):
     """Frame pairs whose searches tie: "flat" (two constant frames of
     different levels: all 625 offsets have one SAD) and "lattice" (a 4x4
     dot lattice moved by one pixel each way: every offset congruent to
     (1, 1) mod 4 has SAD 0 away from the stripe edges, so the winner is
     the lowest rank among many non-zero offsets)."""
-    flat_cur = np.full((H, W, 3), 90, np.uint8)
-    flat_ref = np.full((H, W, 3), 100, np.uint8)
-    yy, xx = np.mgrid[0:H, 0:W]
+    flat_cur = np.full((h, w, 3), 90, np.uint8)
+    flat_ref = np.full((h, w, 3), 100, np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
     dots = np.where((yy % 4 == 0) & (xx % 4 == 0), 220, 30).astype(np.uint8)
     lat_ref = np.repeat(dots[..., None], 3, -1)
     lat_cur = np.roll(lat_ref, (1, 1), axis=(0, 1))
@@ -1203,22 +1289,26 @@ def _me_at_shape(enc, int_ops_per_s: float, sessions: int = 0) -> dict:
     noise pair and two pairs whose searches tie (_tie_pairs): mv and the
     three predictions must be exactly equal. Then kernel and plain times
     and the bound of the work. ``sessions=N``: a lane's tick, N sessions'
-    pairs (scroll and noise of their own seeds) on one stripe axis."""
+    pairs (scroll and noise of their own seeds) on one stripe axis. The
+    frames are of ``enc``'s geometry."""
     import torch
 
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
     from selkies_tpu_torch.ops.motion import full_search_mc
 
+    w, h = enc.width, enc.height
+    geom = "1080p" if (w, h) == (W, H) else f"{w}x{h}"
+
     def pair_set(k):
-        scroll = SyntheticSource(W, H, pattern="scroll", seed=k)
+        scroll = SyntheticSource(w, h, pattern="scroll", seed=k)
         a = scroll.next_frame()
         return {"scroll": (scroll.next_frame(), a),
-                "noise": (SyntheticSource(W, H, pattern="noise", seed=k + 1)
+                "noise": (SyntheticSource(w, h, pattern="noise", seed=k + 1)
                           .next_frame(),
-                          SyntheticSource(W, H, pattern="noise", seed=k + 2)
+                          SyntheticSource(w, h, pattern="noise", seed=k + 2)
                           .next_frame()),
-                **_tie_pairs()}
+                **_tie_pairs(w, h)}
 
     pairs = pair_set(0)
     if sessions:
@@ -1239,6 +1329,7 @@ def _me_at_shape(enc, int_ops_per_s: float, sessions: int = 0) -> dict:
         moved[name] = int((got[0] != 0).any(-1).sum().item())
     S, h, w = _h264_planes(*pairs["scroll"], enc)[0].shape
     shape = f"[{S},{h},{w}]"
+    tiles = -(-w // 128)
     reps, plain_reps = (50, 2) if not sessions else (20, 1)
     check(n_diff == 0, f"me_mc kernel vs plain at {shape}: {n_diff} of "
           f"{n_vals} differ ({per_pair})")
@@ -1273,9 +1364,11 @@ def _me_at_shape(enc, int_ops_per_s: float, sessions: int = 0) -> dict:
         "n_diff_by_pair": per_pair,
         "moved_blocks_by_pair": moved,
         "ms": kernel_ms,
-        "ms_timing": f"{kernel_how} device time, {reps} reps, 1080p scroll "
-                     "pair" + (f" of each of {sessions} sessions"
-                               if sessions else ""),
+        "ms_timing": f"{kernel_how} device time, {reps} reps, {geom} "
+                     "scroll pair" + (f" of each of {sessions} sessions"
+                                      if sessions else ""),
+        "tiles_128": tiles,
+        "last_tile_mbs": (w - 128 * (tiles - 1)) // 16,
         "plain_timing": plain_how,
         "events_ms": events_ms,
         "plain_ms": plain_ms,
@@ -1287,8 +1380,8 @@ def _me_at_shape(enc, int_ops_per_s: float, sessions: int = 0) -> dict:
                         f"lanes x {int_ops_per_s / INT32_LANES / 1e6:.0f} "
                         f"MHz max SM clock); {in_bytes + out_bytes} bytes / "
                         "3.35 TB/s"),
-        "unit": (f"one lane tick of {sessions} 1080p P frames: "
-                 if sessions else "one 1080p P frame: ")
+        "unit": (f"one lane tick of {sessions} {geom} P frames: "
+                 if sessions else f"one {geom} P frame: ")
         + f"{S} stripe(s) of {h}x{w}, 1 launch",
     }
 
@@ -1307,6 +1400,17 @@ def phase_me_kernel_check(int_ops_per_s: float):
         int_ops_per_s)
     full = _me_at_shape(H264StripeEncoder(W, H, fullframe=True, device=DEVICE),
                         int_ops_per_s)
+    # the resized shapes before the lanes': once CUPTI starts losing a
+    # window's records (the N = 8 lane's, in some calls) it tends to keep
+    # losing them, and the timings fall back to CUDA events
+    resize = {}
+    for w, h in RESIZE_GEOMS:
+        resize[f"{w}x{h}"] = _me_at_shape(
+            H264StripeEncoder(w, h, stripe_height=STRIPE, device=DEVICE),
+            int_ops_per_s)
+        resize[f"{w}x{h}/full_frame"] = _me_at_shape(
+            H264StripeEncoder(w, h, fullframe=True, device=DEVICE),
+            int_ops_per_s)
     lanes = {f"N{n}": _me_at_shape(
         H264StripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE),
         int_ops_per_s, sessions=n) for n in MESH_SIZES}
@@ -1323,6 +1427,7 @@ def phase_me_kernel_check(int_ops_per_s: float):
         "sass_per_vabsdiff4": _per_vabsdiff4(),
         "full_frame": full,
         "lane_shapes": lanes,
+        "resize_shapes": resize,
     }
     return entry
 
@@ -2390,6 +2495,623 @@ def phase_server_mesh():
     return res
 
 
+#: server_resize: the walk each served profile takes from 1920x1080, the
+#: ACKed frames each of its steps waits for, the storm's resizes (the last
+#: one wins), and the time a step may take
+RESIZE_WALK = ((1366, 768), (2560, 1440), (1920, 1080))
+RESIZE_FRAMES = 30
+RESIZE_STORM = 20
+RESIZE_TIMEOUT_S = 120.0
+#: the lane case: the cohabitants' longest gap between frames in the
+#: second after the resize, and the frames each should have there
+LANE_RESIZE_MAX_GAP_S = 0.5
+LANE_RESIZE_TARGET_FRAMES = 15
+
+
+def _reserved_mb() -> int:
+    """The CUDA allocator's reserved memory in MB, once the card is idle
+    (0 in a CPU rehearsal)."""
+    import torch
+
+    if DEVICE != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_reserved() >> 20
+
+
+class _Client:
+    """One in-process client of the served primary display: reads what the
+    server sent (and drops it, so a long phase keeps no media), ACKs every
+    new frame id when ``ack``, keeps the frame-id epochs apart (each
+    ``PIPELINE_RESETTING`` restarts the ids at 1) and keeps the wire bytes
+    of each epoch's frame 1."""
+
+    def __init__(self, server, settings=None, ws=None, ack=True) -> None:
+        from selkies_tpu_torch.robustness import InProcessClient
+
+        self.ws = ws if ws is not None else InProcessClient()
+        self.task = asyncio.create_task(server.ws_handler(self.ws))
+        self.ack = ack
+        self.epoch = 0
+        self.frames = []            # (epoch, frame id, monotonic time)
+        self.resets = []            # monotonic time of each reset
+        self.first = {}             # epoch -> wire messages of frame 1
+        self.texts = []
+        if settings is not None:
+            self.ws.feed("SETTINGS," + json.dumps(settings))
+
+    def pump(self) -> None:
+        from selkies_tpu_torch.protocol.wire import unpack_binary
+
+        now = time.monotonic()
+        sent, self.ws.sent = self.ws.sent, []
+        for m in sent:
+            if isinstance(m, (bytes, bytearray)):
+                f = unpack_binary(bytes(m))
+                if f.frame_id == 1:
+                    self.first.setdefault(self.epoch, []).append(bytes(m))
+                key = (self.epoch, f.frame_id)
+                if not self.frames or self.frames[-1][:2] != key:
+                    self.frames.append((self.epoch, f.frame_id, now))
+                    if self.ack:
+                        self.ws.feed(f"CLIENT_FRAME_ACK {f.frame_id}")
+            elif m == "PIPELINE_RESETTING primary":
+                self.epoch += 1
+                self.resets.append(now)
+            else:
+                self.texts.append(m)
+
+    def in_epoch(self, epoch: int):
+        return [t for e, _, t in self.frames if e == epoch]
+
+    def between(self, t0: float, t1: float) -> int:
+        return sum(1 for _, _, t in self.frames if t0 <= t < t1)
+
+
+def _fps(times) -> float:
+    return (len(times) - 1) / (times[-1] - times[0]) if len(times) > 1 \
+        else None
+
+
+async def _until(pred, clients, timeout: float) -> bool:
+    t0 = time.monotonic()
+    while True:
+        for c in clients:
+            c.pump()
+        if pred():
+            return True
+        if time.monotonic() - t0 > timeout:
+            return False
+        await asyncio.sleep(0.005)
+
+
+def _fresh_first_frame(profile: str, w: int, h: int, settings) -> list:
+    """The wire messages of frame 1 of a display of ``w`` x ``h``: the
+    served source's first frame encoded synchronously on the card by a
+    fresh encoder of that geometry, built by the served factory."""
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.server.data_server import (_pack_stripe,
+                                                      default_encoder_factory)
+
+    frame = SyntheticSource(w, h, 60, pattern="desktop").next_frame()
+    drv = default_encoder_factory(w, h, settings, {}, device=DEVICE)
+    try:
+        stripes = drv.pipe.base.encode_frame(frame)
+        return [_pack_stripe(1, s, drv) for s in stripes]
+    finally:
+        drv.close()
+        drv.join(30.0)
+
+
+def _served_state(server) -> dict:
+    st = server.display_clients["primary"]
+    sup = st.supervisor.stats()
+    return {"ladder": st.ladder.state(),
+            "supervisor": {k: sup[k] for k in (
+                "state", "restarts_total", "failures_total")},
+            "geometry": [st.width, st.height],
+            "encoder_stats": st.encoder.stats()}
+
+
+def _check_served(name: str, state: dict) -> None:
+    """No fault was armed: the display stays on its device rung, its
+    capture loop never restarted and its encoder counts no error."""
+    lad, sup = state["ladder"], state["supervisor"]
+    check(lad["rung"] == "device" and lad["failures_total"] == 0
+          and not lad["transitions"], f"{name}: left the device rung: {lad}")
+    check(sup["restarts_total"] == 0 and sup["failures_total"] == 0
+          and sup["state"] == "running", f"{name}: restarted: {sup}")
+    es = state["encoder_stats"]
+    check(es.get("encode_errors", 0) == 0 and es.get("entropy_errors", 0) == 0,
+          f"{name}: encoder errors: {es}")
+
+
+def phase_server_resize():
+    """Each served profile at 1920x1080 through ws_handler (an in-process
+    owner ACKing every frame), walked mid-stream through r,1366x768 ->
+    r,2560x1440 -> r,1920x1080. Each step's kernel launches are counted
+    from 0 just before its ``r`` and read just after its RESIZE_FRAMES
+    frames (paths ``resize:<profile>/<W>x<H>``) and must cover every frame
+    (JPEG) or P frame (H.264) at the new geometry; its frame 1 must equal
+    the same source frame encoded synchronously on the card by a fresh
+    encoder of that geometry; the time from ``r`` to that frame and the
+    rate over the step's frames are reported. Then the walk again, half
+    the frames a step (the reserved memory after it within
+    CHURN_GROWTH_MB of the first's), and a storm of RESIZE_STORM resizes
+    within 100 ms: at most 2 reconfigurations, at least RESIZE_STORM - 2
+    coalesced, the display at the storm's last geometry. Last, four 1080p
+    x264enc-striped displays share one lane and one resizes: it streams
+    from the new geometry's bucket while the others keep streaming, and
+    resized back, the drained bucket retires; then the resize once more
+    with each bucket's scheduler on a thread of its own (the JAX
+    server's design), for comparison."""
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+    from selkies_tpu_torch.server.data_server import DataStreamingServer
+    from selkies_tpu_torch.settings import Settings
+
+    launches = {}
+    out = {"phase": "server_resize", "width": W, "height": H,
+           "frames_per_step": RESIZE_FRAMES, "profiles": {}}
+
+    async def walk(server, c, profile, detail: bool):
+        frames_needed = RESIZE_FRAMES if detail else RESIZE_FRAMES // 2
+        kernel, other = ((dct8_quant_zigzag, me_mc_stripes)
+                         if profile == "jpeg"
+                         else (me_mc_stripes, dct8_quant_zigzag))
+        steps = {}
+        for w, h in RESIZE_WALK:
+            ep = c.epoch
+            dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+            t0 = time.monotonic()
+            c.ws.feed(f"r,{w}x{h}")
+            ok = await _until(lambda: len(c.in_epoch(ep + 1))
+                              >= frames_needed, [c], RESIZE_TIMEOUT_S)
+            n_kernel, n_other = kernel.launches, other.launches
+            check(ok and c.epoch == ep + 1,
+                  f"{profile} {w}x{h}: {len(c.in_epoch(ep + 1))} frames, "
+                  f"epoch {c.epoch}")
+            times = c.in_epoch(ep + 1)
+            frames = len(times)
+            need = frames if profile == "jpeg" else frames - 1
+            check(n_kernel >= need and n_other == 0,
+                  f"{profile} {w}x{h}: {n_kernel} launches for {need} "
+                  f"{'frames' if profile == 'jpeg' else 'P frames'}, "
+                  f"{n_other} of the other kernel")
+            step = {"reset_s": c.resets[-1] - t0,
+                    "first_frame_s": times[0] - t0,
+                    "frames": frames, "frames_per_s": _fps(times),
+                    "launches": n_kernel}
+            if detail:
+                launches[f"resize:{profile}/{w}x{h}"] = n_kernel
+                first = c.first[ep + 1]
+                want = _fresh_first_frame(profile, w, h, server.settings)
+                check(first == want,
+                      f"{profile} {w}x{h}: frame 1 differs from a fresh "
+                      f"encoder's ({len(first)} vs {len(want)} messages)")
+                step["first_frame_wire_bytes"] = sum(len(m) for m in first)
+                step["first_frame_messages"] = len(first)
+            st = server.display_clients["primary"]
+            check((st.width, st.height) == (w, h), f"{profile}: geometry")
+            steps[f"{w}x{h}"] = step
+        return steps
+
+    async def run(profile):
+        settings = Settings(argv=[], env={"SELKIES_PORT": "0",
+                                          "SELKIES_ENCODER": profile})
+        server = DataStreamingServer(settings, device=DEVICE)
+        c = _Client(server, {"displayId": "primary", "initialClientWidth": W,
+                             "initialClientHeight": H, "framerate": 60})
+        t0 = time.monotonic()
+        ok = await _until(lambda: len(c.in_epoch(1)) >= RESIZE_FRAMES, [c],
+                          RESIZE_TIMEOUT_S)
+        check(ok, f"{profile}: {len(c.in_epoch(1))} frames at 1080p")
+        res = {"first_frame_after_settings_s": c.in_epoch(1)[0] - t0,
+               "resize_debounce_ms": int(settings.resize_debounce_ms),
+               "frames_per_s_1080p": _fps(c.in_epoch(1))}
+        res["walk"] = await walk(server, c, profile, True)
+        reserved1 = _reserved_mb()
+        res["second_walk"] = await walk(server, c, profile, False)
+        reserved2 = _reserved_mb()
+        res["reserved_mb_after_walks"] = [reserved1, reserved2]
+        check(reserved2 - reserved1 <= CHURN_GROWTH_MB,
+              f"{profile}: reserved memory grew from {reserved1} MB to "
+              f"{reserved2} MB over the second walk")
+        # the storm: RESIZE_STORM resizes within 100 ms, the last one wins
+        edge0 = dict(server.edge_stats)
+        ep = c.epoch
+        t0 = time.monotonic()
+        storm = [(1280 + 64 * (k % 7), 720 + 36 * (k % 5))
+                 for k in range(RESIZE_STORM - 1)] + [RESIZE_WALK[0]]
+        for w, h in storm:              # all at once: well within 100 ms
+            c.ws.feed(f"r,{w}x{h}")
+        await _until(lambda: c.ws._incoming.empty(), [c], 10.0)
+        fed_s = time.monotonic() - t0
+        ok = await _until(lambda: len(c.in_epoch(ep + 1)) >= 5, [c],
+                          RESIZE_TIMEOUT_S)
+        await _until(lambda: False, [c], 0.5)
+        runs = server.edge_stats["reconfigure_runs"] - edge0[
+            "reconfigure_runs"]
+        coal = server.edge_stats["reconfigure_coalesced"] - edge0[
+            "reconfigure_coalesced"]
+        st = server.display_clients["primary"]
+        res["storm"] = {"resizes": RESIZE_STORM, "handled_in_s": fed_s,
+                        "reconfigure_runs": runs,
+                        "reconfigure_coalesced": coal,
+                        "epochs": c.epoch - ep,
+                        "geometry": [st.width, st.height],
+                        "first_frame_s": (c.in_epoch(ep + 1)[0] - t0
+                                          if ok else None)}
+        check(ok and runs <= 2 and coal >= RESIZE_STORM - 2
+              and (st.width, st.height) == RESIZE_WALK[0],
+              f"{profile} storm: {res['storm']}")
+        res.update(_served_state(server))
+        res["edge_stats"] = dict(server.edge_stats)
+        await c.ws.close()
+        await asyncio.wait_for(c.task, 30.0)
+        await server.stop()
+        _check_served(f"server_resize/{profile}", res)
+        return res
+
+    for profile in ("jpeg", "x264enc-striped", "x264enc"):
+        out["profiles"][profile] = asyncio.run(run(profile))
+    me_mc_stripes.launches = 0
+    out["lane"] = asyncio.run(_lane_resize())
+    launches["resize:mesh:x264enc-striped (server)"] = \
+        out["lane"]["me_mc_launches"] = me_mc_stripes.launches
+    out["lane_own_tickers"] = asyncio.run(_lane_resize(own_tickers=True))
+    return out, launches
+
+
+async def _lane_resize(own_tickers: bool = False) -> dict:
+    """Four 1080p x264enc-striped displays from one lane; d0 resizes to
+    the first RESIZE_WALK geometry: its first frame there comes from that
+    geometry's bucket while d1-d3 keep streaming (frames in the second
+    after the resize); then d0 resizes back into its old bucket, and the
+    drained bucket is retired (its lane's planes freed). ``own_tickers``:
+    each bucket's scheduler on a thread of its own, as in the JAX server,
+    instead of the server's one LaneTicker (measured, not checked)."""
+    from selkies_tpu_torch.server.data_server import (STATS_INTERVAL_S,
+                                                      DataStreamingServer)
+    from selkies_tpu_torch.settings import Settings
+
+    from selkies_tpu_torch.parallel.coordinator import MeshEncodeCoordinator
+
+    w, h = RESIZE_WALK[0]
+    reserved0 = _reserved_mb()
+    server = DataStreamingServer(Settings(argv=[], env=SERVER_MESH_ENV),
+                                 device=DEVICE)
+    if own_tickers:
+        server.coordinator_factory = \
+            lambda *a, ticker=None, **kw: MeshEncodeCoordinator(*a, **kw)
+    views = [_Viewer(server, f"d{k}") for k in range(SERVER_MESH_DISPLAYS)]
+
+    async def until(pred, timeout):
+        t0 = time.monotonic()
+        while not pred() and time.monotonic() - t0 < timeout:
+            await asyncio.sleep(0.005)
+            for v in views:
+                v.pump()
+        return pred()
+
+    ok = await until(lambda: all(len(v.frames) >= 15 for v in views),
+                     SERVER_MESH_TIMEOUT_S)
+    check(ok, "lane resize: " + str([len(v.frames) for v in views]))
+    await until(lambda: False, 2.0)
+    old = server.mesh_coordinators[(W, H, "x264enc-striped")]
+    lag = {"max_ms": 0.0}
+
+    async def loop_lag():
+        # the event loop's longest stall while d0 moves bucket
+        while True:
+            t = time.monotonic()
+            await asyncio.sleep(0.005)
+            lag["max_ms"] = max(lag["max_ms"],
+                                (time.monotonic() - t - 0.005) * 1e3)
+
+    t_r = time.monotonic()
+    monitor = asyncio.create_task(loop_lag())
+    views[0].ws.feed(f"r,{w}x{h},d0")
+    ok = await until(lambda: any(e >= 2 for e, _, _ in views[0].frames),
+                     SERVER_MESH_TIMEOUT_S)
+    check(ok, "lane resize: d0 sent no frame at its new geometry")
+    t_first = next(t for e, _, t in views[0].frames if e >= 2)
+    await until(lambda: False, max(0.0, t_r + 1.0 - time.monotonic()))
+    monitor.cancel()
+    await until(lambda: False, max(0.0, t_first + 2.5 - time.monotonic()))
+
+    def rate(v, t0, t1):
+        return sum(1 for _, _, t in v.frames if t0 <= t < t1) / (t1 - t0)
+
+    others = [sum(1 for _, _, t in v.frames if t_r <= t < t_r + 1.0)
+              for v in views[1:]]
+
+    def longest_gap(v, t0, t1):
+        ts = [t0] + [t for _, _, t in v.frames if t0 <= t < t1] + [t1]
+        return max(b - a for a, b in zip(ts, ts[1:]))
+
+    new = server.mesh_coordinators.get((w, h, "x264enc-striped"))
+    res = {"resize_to": [w, h], "own_tickers": own_tickers,
+           "first_frame_s": t_first - t_r,
+           "loop_max_stall_ms": lag["max_ms"],
+           "others_fps_before": [rate(v, t_r - 2.0, t_r) for v in views[1:]],
+           "others_fps_two_lanes": [rate(v, t_first + 0.5, t_first + 2.5)
+                                    for v in views[1:]],
+           "d0_fps_new_bucket": rate(views[0], t_first + 0.5, t_first + 2.5),
+           "others_frames_in_second_after": others,
+           "others_frames_target": LANE_RESIZE_TARGET_FRAMES,
+           "others_longest_gap_s": [longest_gap(v, t_r, t_r + 1.0)
+                                    for v in views[1:]],
+           "others_epochs": [v.epoch for v in views[1:]],
+           "buckets": sorted(f"{a}x{b}/{p}"
+                             for a, b, p in server.mesh_coordinators),
+           "sessions": [old.active_sessions,
+                        new.active_sessions if new else None]}
+    check(new is not None and res["sessions"] == [3, 1],
+          f"lane resize: buckets {res}")
+    print("lane resize:", json.dumps(res), file=sys.stderr, flush=True)
+    # the cohabitants kept streaming: never restarted, and no freeze
+    # longer than LANE_RESIZE_MAX_GAP_S in the second after the resize.
+    # Their frame count there is reported against
+    # LANE_RESIZE_TARGET_FRAMES: the host's share of two lanes' dispatch
+    # sets it, and it varies with the host from call to call
+    check(res["others_epochs"] == [1] * len(others)
+          and max(res["others_longest_gap_s"]) <= LANE_RESIZE_MAX_GAP_S,
+          f"lane resize: the cohabitants stalled: {res}")
+    if own_tickers:                     # the comparison ends here
+        for v in views:
+            await v.ws.close()
+            await asyncio.wait_for(v.task, 30.0)
+        await server.stop()
+        return res
+    # back into the old bucket: the new one drains and its lane retires
+    views[0].ws.feed(f"r,{W}x{H},d0")
+    ok = await until(lambda: any(e >= 3 for e, _, _ in views[0].frames),
+                     SERVER_MESH_TIMEOUT_S)
+    check(ok, "lane resize: d0 sent no frame back at 1080p")
+    t_back = time.monotonic()
+    key = (w, h, "x264enc-striped")
+    ok = await until(lambda: key not in server.mesh_coordinators,
+                     2 * STATS_INTERVAL_S + new.lane_retire_s + 10.0)
+    res["drained_bucket"] = {"retired": ok,
+                             "retired_after_s": time.monotonic() - t_back,
+                             "active_sessions": new.active_sessions}
+    res["sessions_back"] = old.active_sessions
+    check(ok and old.active_sessions == 4,
+          f"lane resize: the drained bucket stayed: {res}")
+    res["mesh_stats"] = dict(server.mesh_stats)
+    for v in views:
+        await v.ws.close()
+        await asyncio.wait_for(v.task, 30.0)
+    await server.stop()
+    res["reserved_mb_before_after"] = [reserved0, _reserved_mb()]
+    check(res["mesh_stats"]["solo_fallback"] == 0,
+          f"lane resize: solo fallback {res['mesh_stats']}")
+    return res
+
+
+#: server_edge: each fps window, and the stats feed's interval there
+EDGE_WINDOW_S = 2.0
+EDGE_STATS_INTERVAL_S = 1.0
+EDGE_UPLOAD_MB = 64
+EDGE_UPLOAD_CHUNK = 256 << 10
+
+
+def phase_server_edge():
+    """The wire edge on a 1080p JPEG display served through ws_handler, its
+    source a scrolling desktop (every stripe of every frame changes, the
+    media rate a slow consumer must keep up with): the
+    owner (ACKing every frame) and a healthy viewer stream; their rates
+    without, then with a viewer whose ``send`` blocks (a stalled
+    consumer): it must be evicted (KILL slow_consumer, its socket closed)
+    within slow_client_evict_s + 2 s, its send queue never deeper than
+    max_send_queue; their rates after. A client sending
+    protocol_error_budget + 1 malformed messages gets KILL
+    protocol_abuse while the owner streams on. A 64 MiB upload in 0x01
+    chunks lands byte for byte while the display streams (the owner's
+    rate during it). The stats feed's ``gpu_stats`` reads the card.
+    STATS_INTERVAL_S is shortened through the module attribute."""
+    import tempfile
+
+    import torch
+
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.robustness import InProcessClient
+    from selkies_tpu_torch.server import data_server
+    from selkies_tpu_torch.settings import Settings
+
+    class StalledClient(InProcessClient):
+        """A viewer that stops reading: once ``stall`` is set, its send
+        never returns (a peer whose TCP window closed)."""
+
+        stall = False
+
+        async def send(self, message) -> None:
+            if self.stall:
+                await asyncio.Event().wait()
+            await super().send(message)
+
+    async def run(upload_dir):
+        settings = Settings(argv=[], env={"SELKIES_PORT": "0",
+                                          "SELKIES_ENCODER": "jpeg"})
+        server = data_server.DataStreamingServer(
+            settings, device=DEVICE,
+            source_factory=lambda w, h, fps: SyntheticSource(
+                w, h, fps, pattern="scroll"))
+        owner = _Client(server, {"displayId": "primary",
+                                 "initialClientWidth": W,
+                                 "initialClientHeight": H, "framerate": 60})
+        viewer = _Client(server, ack=False)
+        clients = [owner, viewer]
+        ok = await _until(lambda: len(owner.frames) >= 30
+                          and len(viewer.frames) >= 10, clients, 120.0)
+        check(ok, "server_edge: the display did not stream")
+
+        async def window(secs):
+            t0 = time.monotonic()
+            await _until(lambda: False, clients, secs)
+            t1 = time.monotonic()
+            return {"owner": owner.between(t0, t1) / (t1 - t0),
+                    "viewer": viewer.between(t0, t1) / (t1 - t0)}
+
+        res = {"phase": "server_edge", "profile": "jpeg", "width": W,
+               "height": H, "max_send_queue": int(settings.max_send_queue),
+               "slow_client_evict_s": int(settings.slow_client_evict_s),
+               "protocol_error_budget": int(settings.protocol_error_budget)}
+        res["fps_without_stalled"] = await window(EDGE_WINDOW_S)
+
+        stalled = _Client(server, ws=StalledClient(), ack=False)
+        clients.append(stalled)
+        ok = await _until(lambda: len(stalled.frames) >= 1
+                          and stalled.ws in server._send_queues, clients,
+                          30.0)
+        check(ok, "server_edge: the stalled viewer never streamed")
+        q = server._send_queues[stalled.ws].q
+        depth = {"max": 0, "max_video": 0, "control_offered": 0}
+        offer = q.offer
+
+        def offer_and_measure(message, control=False):
+            r = offer(message, control)
+            depth["max"] = max(depth["max"], len(q))
+            depth["max_video"] = max(depth["max_video"], q.video_len)
+            depth["control_offered"] += bool(control)
+            return r
+
+        q.offer = offer_and_measure
+        t_stall = time.monotonic()
+        stalled.ws.stall = True
+        # evicted: the server gives up on it and sends KILL slow_consumer
+        # (a send the stalled peer never completes: the socket is closed
+        # 1 s later)
+        ok = await _until(
+            lambda: server.edge_stats["slow_client_evictions"] >= 1,
+            clients, res["slow_client_evict_s"] + 10.0)
+        t_evict = time.monotonic()
+        ok = await _until(lambda: stalled.ws.closed, clients, 10.0) and ok
+        t_closed = time.monotonic()
+        res["fps_with_stalled"] = {
+            "owner": owner.between(t_stall, t_evict) / (t_evict - t_stall),
+            "viewer": viewer.between(t_stall, t_evict) / (t_evict - t_stall)}
+        res["stalled"] = {"evicted_after_s": t_evict - t_stall,
+                          "closed_after_s": t_closed - t_stall,
+                          "first_drop_after_s": (q.overflow_since - t_stall
+                                                 if q.overflow_since
+                                                 else None),
+                          "evictions": server.edge_stats[
+                              "slow_client_evictions"],
+                          "queue_depth_max": depth["max"],
+                          "queue_video_max": depth["max_video"],
+                          "control_offered": depth["control_offered"],
+                          "video_dropped": q.dropped_video_total}
+        check(ok and res["stalled"]["evictions"] == 1
+              and t_evict - t_stall <= res["slow_client_evict_s"] + 2.0,
+              f"server_edge: stalled viewer: {res['stalled']}")
+        # max_send_queue bounds the media in the queue; control messages
+        # (the stats feed) are never dropped and come on top
+        check(depth["max_video"] <= res["max_send_queue"]
+              and depth["max"] <= res["max_send_queue"]
+              + depth["control_offered"],
+              f"server_edge: the stalled queue grew past max_send_queue: "
+              f"{res['stalled']}")
+        await asyncio.wait_for(stalled.task, 30.0)
+        clients.remove(stalled)
+        res["fps_after_eviction"] = await window(EDGE_WINDOW_S)
+
+        # the abuser: protocol_error_budget + 1 malformed messages
+        abuser = _Client(server, ack=False)
+        clients.append(abuser)
+        await _until(lambda: abuser.texts, clients, 10.0)
+        n0 = len(owner.frames)
+        for _ in range(res["protocol_error_budget"] + 1):
+            abuser.ws.feed(b"\xee not a client message")
+        ok = await _until(lambda: abuser.ws.closed, clients, 30.0)
+        await _until(lambda: len(owner.frames) > n0 + 30, clients, 30.0)
+        res["abuser"] = {"killed": "KILL protocol_abuse" in abuser.texts,
+                         "protocol_errors":
+                             server.edge_stats["protocol_errors"],
+                         "owner_frames_meanwhile": len(owner.frames) - n0}
+        check(ok and res["abuser"]["killed"]
+              and res["abuser"]["owner_frames_meanwhile"] > 30,
+              f"server_edge: abuser: {res['abuser']}")
+        await asyncio.wait_for(abuser.task, 30.0)
+        clients.remove(abuser)
+
+        # the upload, while the display streams
+        data = np.random.default_rng(9).bytes(EDGE_UPLOAD_MB << 20)
+        up = _Client(server, ack=False)
+        clients.append(up)
+        await _until(lambda: up.texts, clients, 10.0)
+        t0 = time.monotonic()
+        up.ws.feed(f"FILE_UPLOAD_START:smoke/upload.bin:{len(data)}")
+        for k in range(0, len(data), EDGE_UPLOAD_CHUNK):
+            up.ws.feed(b"\x01" + data[k:k + EDGE_UPLOAD_CHUNK])
+        up.ws.feed("FILE_UPLOAD_END:smoke/upload.bin")
+        ok = await _until(lambda: up.ws._incoming.empty()
+                          and not server._uploads, clients, 120.0)
+        t1 = time.monotonic()
+        # the owner's rate over a window that holds the whole upload
+        await _until(lambda: False, clients, t0 + EDGE_WINDOW_S - t1)
+        t2 = max(t1, time.monotonic())
+        path = os.path.join(upload_dir, "smoke", "upload.bin")
+        with open(path, "rb") as fh:
+            equal = fh.read() == data
+        res["upload"] = {"bytes": len(data), "chunk": EDGE_UPLOAD_CHUNK,
+                         "seconds": t1 - t0, "equal": equal,
+                         "owner_fps_window_s": t2 - t0,
+                         "owner_fps_during": owner.between(t0, t2) / (t2 - t0),
+                         "upload_paced": server.edge_stats["upload_paced"],
+                         "errors": [t for t in up.texts
+                                    if t.startswith("FILE_UPLOAD_ERROR")]}
+        check(ok and equal and not res["upload"]["errors"],
+              f"server_edge: upload: {res['upload']}")
+        await up.ws.close()
+        await asyncio.wait_for(up.task, 30.0)
+        clients.remove(up)
+
+        # the stats feed's gpu_stats
+        ok = await _until(lambda: any('"gpu_stats"' in t
+                                      for t in owner.texts), clients,
+                          EDGE_STATS_INTERVAL_S * 3 + 5.0)
+        check(ok, "server_edge: no gpu_stats in the stats feed")
+        gpu = next(json.loads(t) for t in reversed(owner.texts)
+                   if '"gpu_stats"' in t)
+        net = next(json.loads(t) for t in reversed(owner.texts)
+                   if '"network_stats"' in t)
+        res["gpu_stats"] = gpu
+        res["network_stats"] = net
+        check(gpu["bytes_in_use"] > 0
+              and gpu["device_count"] == torch.cuda.device_count()
+              and gpu["bytes_limit"] > gpu["bytes_in_use"],
+              f"server_edge: gpu_stats {gpu}")
+        res["edge_stats"] = dict(server.edge_stats)
+        res.update(_served_state(server))
+        for c in (owner, viewer):
+            await c.ws.close()
+            await asyncio.wait_for(c.task, 30.0)
+        await server.stop()
+        return res
+
+    interval = data_server.STATS_INTERVAL_S
+    data_server.STATS_INTERVAL_S = EDGE_STATS_INTERVAL_S
+    prev_dir = os.environ.get("SELKIES_UPLOAD_DIR")
+    dct8_quant_zigzag.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            os.environ["SELKIES_UPLOAD_DIR"] = d
+            res = asyncio.run(run(d))
+    finally:
+        data_server.STATS_INTERVAL_S = interval
+        if prev_dir is None:
+            os.environ.pop("SELKIES_UPLOAD_DIR", None)
+        else:
+            os.environ["SELKIES_UPLOAD_DIR"] = prev_dir
+    res["dct8_launches"] = dct8_quant_zigzag.launches
+    _check_served("server_edge", res)
+    check(res["dct8_launches"] > 0, "server_edge never launched dct8")
+    return res
+
+
 #: encoder_churn: cycles per profile, frames per cycle (the batched
 #: encoder's: an IDR batch, then one batched dispatch), and the most the
 #: reserved memory may grow from the 2nd cycle's reading to the last's
@@ -2543,6 +3265,58 @@ def dct_planes_of(root: str) -> int:
     return 0
 
 
+#: the served phases served_against runs in each tree
+SERVED_PROFILES = (("jpeg", 1), ("x264enc-striped", 1), ("x264enc", 1),
+                   ("x264enc-striped", CHURN_BATCH))
+
+#: what one process of served_against runs from a tree's root: that
+#: tree's chip_smoke.py phase_setup, then phase_server for each profile
+_SERVED_CODE = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+cs.phase_setup()
+out = {}
+for profile, batch in %r:
+    r = cs.phase_server(profile, batch=batch)
+    out[profile + ("/batch%%d" %% batch if batch > 1 else "")] = {
+        k: r[k] for k in ("first_frame_s", "frames_per_s_after_first",
+                          "frames_received")}
+print("SERVED " + json.dumps(out))
+""" % (SERVED_PROFILES,)
+
+
+def served_against(other: str, pairs: int = 2) -> int:
+    """The served phases (first frame after SETTINGS, frames/s) of this
+    checkout and of ``other`` (another checkout of the repo), each in a
+    process of its own started from its own root, in the order other,
+    this, this, other, ... (``pairs`` of each): the host of a call
+    varies, so two trees compare only within one call."""
+    import torch
+
+    other = os.path.abspath(other)
+    check(os.path.isfile(os.path.join(other, "chip_smoke.py")),
+          f"{other} holds no chip_smoke.py")
+    order = []
+    for k in range(pairs):
+        order += [other, HERE] if k % 2 == 0 else [HERE, other]
+    runs = {"this": [], "other": []}
+    for root in order:
+        out = subprocess.run([sys.executable, "-c", _SERVED_CODE], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("SERVED ")]
+        check(out.returncode == 0 and lines,
+              f"served phases in {root} failed: {out.stderr[-2000:]}")
+        runs["this" if root == HERE else "other"].append(
+            json.loads(lines[0][len("SERVED "):]))
+    emit({"phase": "served_against", "this": HERE, "other": other,
+          "gpu": torch.cuda.get_device_name(0),
+          "order": ["this" if r == HERE else "other" for r in order],
+          **runs})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2551,6 +3325,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--dct-planes-of"]:
         return dct_planes_of(sys.argv[2])
+    if sys.argv[1:2] == ["--served-against"]:
+        return served_against(sys.argv[2])
     sys.path.insert(0, HERE)
     import selkies_tpu_torch  # noqa: F401  (absent beside a lone script)
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
@@ -2690,6 +3466,20 @@ def main() -> int:
     check(dct8_quant_zigzag.launches == 0, "the H.264 lane launched dct8")
     kern_me["launches_by_path"]["mesh:x264enc-striped (server)"] = \
         server_mesh["me_mc_launches"]
+
+    # resize: each step's counts from 0 just before its r, read just after
+    _settle("server_resize")
+    server_resize, resize_launches = phase_server_resize()
+    emit(server_resize)
+    for path, n in resize_launches.items():
+        (kern if path.startswith("resize:jpeg/") else kern_me)[
+            "launches_by_path"][path] = n
+    # the wire edge: counts from 0 just before the phase
+    _settle("server_edge")
+    server_edge = phase_server_edge()
+    emit(server_edge)
+    kern["launches_by_path"]["edge:jpeg (server)"] = \
+        server_edge["dct8_launches"]
 
     _settle("encoder_churn")
     churn = phase_encoder_churn()

@@ -45,6 +45,11 @@ The worker thread issues the lanes' device work, so it runs with the
 card's one encoder stream current (``_device.encoder_stream``), as every
 thread of the port that issues device work does. With an injected
 ``enc_factory`` nothing is built on a device.
+
+A scheduler ticks on a :class:`LaneTicker`'s thread. Given none, it gets
+one of its own, as the JAX scheduler has its own thread; the server gives
+every bucket's scheduler its one ticker (a divergence from the JAX
+server, see :class:`LaneTicker`).
 """
 
 from __future__ import annotations
@@ -200,8 +205,97 @@ class _LaneTickError(RuntimeError):
     """Internal: a lane's dispatch/harvest failed (already attributed)."""
 
 
+class LaneTicker:
+    """One worker thread that ticks lane schedulers, each at its own
+    framerate, one after another.
+
+    A tick issues a lane's ~1,500 eager device ops from Python, so two
+    such threads contend for the GIL with each other and with the event
+    loop: on the H100 host a second bucket's own thread cut the first
+    bucket's displays to under half their rate (``chip_smoke.py``'s
+    ``server_resize``, ``lane_own_tickers``). The thread enters the stream
+    context of the scheduler that started it (the card's encoder stream,
+    which every scheduler of one card shares) and ends when no scheduler
+    is left."""
+
+    def __init__(self) -> None:
+        self._cond = threading.Condition()
+        self._coords: List["MeshEncodeCoordinator"] = []
+        #: the scheduler being ticked right now (remove waits it out)
+        self._current: Optional["MeshEncodeCoordinator"] = None
+        #: wakes the thread early (stop, retire); a tick still waits for
+        #: its scheduler's next slot
+        self.kick = threading.Event()
+        self.thread: Optional[threading.Thread] = None
+
+    def add(self, coord: "MeshEncodeCoordinator") -> bool:
+        """Tick ``coord`` from now on, starting the thread if none runs.
+        True when a thread that died had to be replaced."""
+        with self._cond:
+            if coord not in self._coords:
+                coord._next_tick = time.monotonic()
+                self._coords.append(coord)
+            if self.thread is not None and self.thread.is_alive():
+                return False
+            died = self.thread is not None
+            self.thread = threading.Thread(
+                target=self._run, args=(coord,), name="mesh-encode",
+                daemon=True)
+            self.thread.start()
+            return died
+
+    def remove(self, coord: "MeshEncodeCoordinator") -> None:
+        """Stop ticking ``coord``: when this returns no tick of it runs or
+        will run. The last one out joins the thread."""
+        me = threading.current_thread()
+        with self._cond:
+            if coord in self._coords:
+                self._coords.remove(coord)
+            if me is not self.thread:
+                self._cond.wait_for(lambda: self._current is not coord,
+                                    timeout=5.0)
+            thread = None if self._coords else self.thread
+            if thread is not None:
+                self.thread = None
+        self.kick.set()
+        if thread is not None and thread is not me:
+            thread.join(timeout=5.0)
+
+    def ticks(self, coord: "MeshEncodeCoordinator") -> bool:
+        with self._cond:
+            return coord in self._coords
+
+    def _run(self, first: "MeshEncodeCoordinator") -> None:
+        me = threading.current_thread()
+        with first._stream_context():
+            while True:
+                with self._cond:
+                    if self.thread is not me or not self._coords:
+                        return
+                    coords = list(self._coords)
+                wake = time.monotonic() + 1.0
+                for coord in coords:
+                    with self._cond:
+                        if coord not in self._coords:
+                            continue
+                        self._current = coord
+                    try:
+                        now = time.monotonic()
+                        if now >= coord._next_tick:
+                            coord._tick_once(now)
+                        wake = min(wake, coord._next_tick)
+                    finally:
+                        with self._cond:
+                            self._current = None
+                            self._cond.notify_all()
+                delay = wake - time.monotonic()
+                if delay > 0:
+                    self.kick.wait(timeout=delay)
+                self.kick.clear()
+
+
 class MeshEncodeCoordinator:
-    """Owns the batch lanes, the session table, and the tick thread."""
+    """Owns the batch lanes, the session table, and its ticks."""
 
     def __init__(
         self,
@@ -221,6 +315,7 @@ class MeshEncodeCoordinator:
         health_window_s: Optional[float] = None,
         lane_retire_s: float = 5.0,
         device=None,
+        ticker: Optional[LaneTicker] = None,
     ) -> None:
         self.profile = profile
         self.width, self.height = width, height
@@ -275,9 +370,10 @@ class MeshEncodeCoordinator:
         #: oldest-first (per-stripe host state advances per tick)
         self.max_inflight = max(1, int(max_inflight))
         self.inflight_batches_max = 0
-        self._kick = threading.Event()
-        self._stop = threading.Event()
-        self._thread: Optional[threading.Thread] = None
+        #: the thread that ticks this scheduler (shared with other
+        #: buckets' schedulers when the server hands one in)
+        self._ticker = ticker if ticker is not None else LaneTicker()
+        self._next_tick = 0.0
         # -- aggregate fault/scheduling accounting (health feeds + tests)
         self.tick_errors_total = 0
         self._consecutive_tick_failures = 0
@@ -541,11 +637,16 @@ class MeshEncodeCoordinator:
             return False
 
     def stop(self) -> None:
-        self._stop.set()
-        self._kick.set()
-        if self._thread is not None:
-            self._thread.join(timeout=5.0)
-            self._thread = None
+        self._ticker.remove(self)
+
+    @property
+    def _kick(self) -> threading.Event:
+        return self._ticker.kick
+
+    @property
+    def _thread(self) -> Optional[threading.Thread]:
+        """The thread ticking this scheduler (None once stopped)."""
+        return self._ticker.thread if self._ticker.ticks(self) else None
 
     # -- facade surface ----------------------------------------------------
 
@@ -599,15 +700,10 @@ class MeshEncodeCoordinator:
     # -- worker ------------------------------------------------------------
 
     def _ensure_thread(self) -> None:
-        if self._thread is None or not self._thread.is_alive():
-            if self._thread is not None:
-                # the previous worker died (tick exception storm or device
-                # loss); account for the re-spawn so it is observable
-                self.worker_restarts_total += 1
-            self._stop.clear()
-            self._thread = threading.Thread(
-                target=self._run, name="mesh-encode", daemon=True)
-            self._thread.start()
+        if self._ticker.add(self):
+            # the previous worker died (tick exception storm or device
+            # loss); account for the re-spawn so it is observable
+            self.worker_restarts_total += 1
 
     def _stream_context(self):
         """The card's encoder stream, current for the worker thread (a
@@ -618,37 +714,25 @@ class MeshEncodeCoordinator:
 
         return torch.cuda.stream(self._stream)
 
-    def _run(self) -> None:
-        with self._stream_context():
-            self._run_ticks()
-
-    def _run_ticks(self) -> None:
+    def _tick_once(self, now: float) -> None:
+        """One tick on the ticker's thread, and the time of the next."""
         interval = 1.0 / max(1.0, self.framerate)
-        next_tick = time.monotonic()
-        while not self._stop.is_set():
-            delay = next_tick - time.monotonic()
-            if delay > 0:
-                self._kick.wait(timeout=delay)
-            self._kick.clear()
-            now = time.monotonic()
-            if now < next_tick:
-                continue
-            next_tick = max(next_tick + interval, now - interval)
-            try:
-                self._tick()
-                self._consecutive_tick_failures = 0
-            except Exception:
-                # whole-tick failure (mesh.tick_raise / unexpected): lane
-                # errors are contained per lane, so reaching here is rare;
-                # back off with a capped exponential so a persistent fault
-                # doesn't spin the worker at tick rate
-                self.tick_errors_total += 1
-                self._consecutive_tick_failures += 1
-                logger.exception("mesh encode tick failed (streak %d)",
-                                 self._consecutive_tick_failures)
-                # interruptible: stop() must not wait out the backoff
-                self._stop.wait(backoff_delay(
-                    self._consecutive_tick_failures, 0.5, 5.0))
+        self._next_tick = max(self._next_tick + interval, now - interval)
+        try:
+            self._tick()
+            self._consecutive_tick_failures = 0
+        except Exception:
+            # whole-tick failure (mesh.tick_raise / unexpected): lane
+            # errors are contained per lane, so reaching here is rare;
+            # back off with a capped exponential so a persistent fault
+            # doesn't spin the worker at tick rate (without holding up
+            # the other schedulers on the ticker)
+            self.tick_errors_total += 1
+            self._consecutive_tick_failures += 1
+            logger.exception("mesh encode tick failed (streak %d)",
+                             self._consecutive_tick_failures)
+            self._next_tick = time.monotonic() + backoff_delay(
+                self._consecutive_tick_failures, 0.5, 5.0)
 
     def stats(self) -> dict:
         """Scheduler + per-slot fault accounting for health feeds/tests."""

@@ -1,37 +1,54 @@
-"""The WebSocket data server, reduced to the video path of the websockets mode.
+"""The WebSocket data server of the websockets mode.
 
-Counterpart of ``selkies_tpu/server/data_server.py``. What this slice keeps:
+Counterpart of ``selkies_tpu/server/data_server.py``. What the port serves:
 
 * the ``ws_handler`` handshake — ``SETTINGS,{json}`` in; ``MODE
-  websockets`` and the ``server_settings`` JSON out;
-* starting a display on ``SETTINGS`` and running its capture loop: source
-  frames → the encoder's ``try_submit``/``poll`` → 0x03 JPEG stripes, 0x04
-  H.264 stripes for ``x264enc-striped`` or 0x00 full frames for
-  ``x264enc``, fanned out to the display's viewers;
+  websockets``, the last cursor (``cursor,{json}``, when the app has one)
+  and the ``server_settings`` JSON out;
+* each display's capture loop: source frames → the encoder's
+  ``try_submit``/``poll`` → 0x03 JPEG stripes, 0x04 H.264 stripes for
+  ``x264enc-striped`` or 0x00 full frames for ``x264enc``, fanned out to
+  the display's viewers;
+* the wire edge: every server → client message after the handshake rides
+  the client's bounded send queue (drop-oldest video, never-drop control;
+  a consumer saturated for ``slow_client_evict_s`` gets ``KILL
+  slow_consumer``); a connection past ``max_clients`` or while the server
+  is load shedding gets ``KILL server_full``; each connection's
+  :class:`~..robustness.ConnectionGuard` rate-limits its message classes
+  and charges malformed messages to an error budget whose exhaustion ends
+  in ``KILL protocol_abuse``; ``edge_stats`` counts all of it;
+* client binary messages: 0x01 file chunks into the open upload (paced
+  through the upload bucket, capped by ``max_upload_mb``; ``FILE_UPLOAD_*``
+  with path sanitizing under ``SELKIES_UPLOAD_DIR``), 0x02 microphone
+  chunks (capped by ``max_mic_chunk_kb`` and rate-limited, then dropped:
+  there is no audio pipeline yet), anything else rejected;
+* resize and reconfigure: ``r,<W>x<H>`` from a display's owner and every
+  ``SETTINGS`` schedule one debounced reconfiguration
+  (``resize_debounce_ms``; a storm coalesces), which lays the displays out
+  (``display/``; xrandr where the host has it) and restarts the pipelines
+  whose geometry or settings changed; ``s,<scale>`` sets the DPI;
 * supervision (``robustness/``): each display's capture and backpressure
-  loops run under a :class:`~..robustness.Supervisor` (bounded-backoff
-  restarts, a restart budget over a sliding window, a frame-deadline
-  watchdog); encoder failures step the display's
-  :class:`~..robustness.DegradationLadder` (device → host → jpeg, every
-  rung on the card) and a clean window probes it back up; a display whose
-  budget runs out fails alone and is torn down; the ``system_health``
-  feed tells the clients; fault points (``SELKIES_TPU_FAULTS``) are
-  checked at the JAX server's call sites;
+  loops run under a :class:`~..robustness.Supervisor`; encoder failures
+  step the display's :class:`~..robustness.DegradationLadder` (device →
+  host → jpeg, every rung on the card) and a clean window probes it back
+  up; a display whose budget runs out fails alone; fault points
+  (``SELKIES_TPU_FAULTS``) are checked at the JAX server's call sites;
 * ``CLIENT_FRAME_ACK`` and ``_f`` into the display's
-  :class:`~.backpressure.BackpressureState`, re-evaluated every
-  ``CHECK_INTERVAL_S``; ``START_VIDEO``/``STOP_VIDEO``;
-* multi-session lanes (``tpu_mesh``): with a mesh spec, a display of the
-  ``jpeg`` or ``x264enc-striped`` profile at its ``device`` rung rides a
-  slot of a lane (``parallel/``; one scheduler per geometry and profile)
-  instead of its own encoder; a new display is admitted, queued or shed
-  (``KILL server_full``) by the lanes' live capacity, and a session the
-  scheduler migrates off a sick slot restarts its frame ids
-  (``PIPELINE_RESETTING``) with its restart budget forgiven;
-* close.
+  :class:`~.backpressure.BackpressureState`; ``START_VIDEO``/
+  ``STOP_VIDEO``; ``START_AUDIO``/``STOP_AUDIO``; ``cmd`` when
+  ``command_enabled``; ``SET_NATIVE_CURSOR_RENDERING``; other verbs go to
+  ``input_handler`` when one is set;
+* multi-session lanes (``tpu_mesh``): a display of the ``jpeg`` or
+  ``x264enc-striped`` profile at its ``device`` rung rides a slot of a lane
+  of its (geometry, profile) bucket; a new display is admitted, queued or
+  shed by the lanes' live capacity and the load-shedding verdict;
+* the stats feed every ``STATS_INTERVAL_S``: ``system_stats``,
+  ``network_stats`` (bytes sent, lane counters, the edge block),
+  ``system_health`` and ``gpu_stats`` (the card's memory).
 
-Uploads, input, resize/reconfigure, stats, metrics, the flight recorder
-and the wire edge's rate limits and load shedding are not ported yet. An
-unknown encoder profile raises.
+Metrics, the flight recorder, input, audio and X11 capture are not ported
+yet (``self.metrics`` stays None; every call site is guarded). An unknown
+encoder profile raises.
 
 Concurrency model (same invariant as the JAX server): one asyncio loop
 owns all mutable state — the ladder included: errors that the encoder's
@@ -56,18 +73,25 @@ from typing import Any, Callable, Dict, Optional, Set, Tuple
 
 from ..protocol.wire import (
     FrameId,
+    ProtocolError,
     pack_full_frame,
     pack_h264_stripe,
     pack_jpeg_stripe,
     pack_system_health,
     parse_text_message,
+    unpack_client_binary,
 )
-from ..robustness import (FAILED, DegradationLadder, EncoderFault,
-                          FaultInjector, Supervisor, backoff_delay)
+from ..robustness import (FAILED, UPLOAD_VERB_COST, BoundedSendQueue,
+                          ConnectionGuard, DegradationLadder, EncoderFault,
+                          FaultInjector, Supervisor, backoff_delay,
+                          classify_verb, parse_limit_spec)
 from ..settings import SETTING_DEFINITIONS, Settings
 from .backpressure import CHECK_INTERVAL_S, BackpressureState
 
 logger = logging.getLogger("selkies_tpu_torch.server")
+
+STATS_INTERVAL_S = 5.0
+UPLOAD_DIR_ENV = "SELKIES_UPLOAD_DIR"
 
 #: largest accepted client display dimension (one frame stays < ~200 MB)
 MAX_DISPLAY_DIM = 8192
@@ -102,6 +126,61 @@ def _ws_broadcast(targets, message) -> None:
         import websockets
 
         websockets.broadcast(real, message)
+
+
+class _ClientSendQueue:
+    """Asyncio drainer around a :class:`BoundedSendQueue` for one client.
+
+    The fan-out path offers into the bounded queue (synchronous, never
+    blocks the capture loop); this drainer task awaits the transport's
+    real ``send``, so per-client flow control backs up into the queue —
+    where drop-oldest video and the eviction verdict live — instead of
+    into the shared event loop."""
+
+    def __init__(self, ws, q: BoundedSendQueue, on_evict) -> None:
+        self.ws = ws
+        self.q = q
+        self.evicted = False
+        self._on_evict = on_evict
+        self._wake = asyncio.Event()
+        self.task = asyncio.create_task(self._drain())
+
+    def offer(self, message, control: bool) -> None:
+        self.q.offer(message, control=control)
+        self._wake.set()
+        if not self.evicted and self.q.should_evict:
+            self.evicted = True
+            self._on_evict(self)
+
+    async def _drain(self) -> None:
+        try:
+            while True:
+                await self._wake.wait()
+                self._wake.clear()
+                while True:
+                    message = self.q.pop()
+                    if message is None:
+                        break
+                    await self.ws.send(message)
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            # the connection died mid-send; ws_handler's cleanup owns the
+            # socket, the drainer just stops
+            logger.debug("send-queue drain ended", exc_info=True)
+
+    def close(self) -> None:
+        if not self.task.done():
+            self.task.cancel()
+
+
+def upload_dir() -> str:
+    """The file-manager root uploads land in: ``SELKIES_UPLOAD_DIR``, else
+    ``~/Desktop``."""
+    d = os.environ.get(UPLOAD_DIR_ENV) or os.path.join(
+        os.path.expanduser("~"), "Desktop")
+    os.makedirs(d, exist_ok=True)
+    return d
 
 
 def default_encoder_factory(width: int, height: int, settings: Settings,
@@ -191,7 +270,8 @@ def rung_overrides(overrides: Dict[str, Any], rung: str) -> Dict[str, Any]:
 
 
 def default_source_factory(width: int, height: int, fps: float):
-    """Synthetic desktop capture (X11 capture is not ported yet)."""
+    """Synthetic desktop capture (X11 capture is not ported yet, so a
+    display's layout offset ``x, y`` has no source to reach)."""
     from ..capture.synthetic import SyntheticSource
 
     return SyntheticSource(width, height, fps, pattern="desktop")
@@ -217,8 +297,13 @@ class DisplayState:
     ws: Any = None
     width: int = 1024
     height: int = 768
+    #: framebuffer offset of this display (set by _apply_x11_layout)
+    x: int = 0
+    y: int = 0
     bp: BackpressureState = field(default_factory=BackpressureState)
-    #: serializes start/stop (they await mid-flight)
+    #: serializes start/stop/reconfigure (they await mid-flight, so two
+    #: concurrent calls could otherwise both pass the is-running guard and
+    #: spawn duplicate capture loops)
     lock: asyncio.Lock = field(default_factory=asyncio.Lock)
     capture_task: Optional[asyncio.Task] = None
     backpressure_task: Optional[asyncio.Task] = None
@@ -244,11 +329,21 @@ class DisplayState:
     encoder: Any = None
     #: frames sent since the capture loop (re)started
     frames_sent: int = 0
-    #: (width, height) and (overrides, framerate) the running pipeline was
-    #: started with: a SETTINGS from its owner that changes neither keeps
-    #: it streaming
-    running_geom: Optional[Tuple[int, int]] = None
+    #: (w, h, x, y) the running pipeline was started with — scoped
+    #: reconfiguration restarts only displays whose geometry changed
+    running_geom: Optional[Tuple[int, int, int, int]] = None
+    #: (overrides, framerate) snapshot at pipeline start: a SETTINGS
+    #: change with unchanged geometry must still rebuild the encoder
     running_config: Optional[Tuple[Dict[str, Any], float]] = None
+
+
+@dataclass
+class _Upload:
+    path: str
+    rel_path: str  # as the client named it; echoed back in errors
+    fobj: Any
+    received: int = 0
+    size: int = 0
 
 
 class DataStreamingServer:
@@ -262,12 +357,16 @@ class DataStreamingServer:
     def __init__(
         self,
         settings: Settings,
+        app=None,
         encoder_factory: Callable = default_encoder_factory,
         source_factory: Callable = default_source_factory,
+        input_handler=None,
         host: str = "0.0.0.0",
         device=None,
     ) -> None:
         self.settings = settings
+        self.app = app
+        self.input_handler = input_handler
         self.encoder_factory = encoder_factory
         self.source_factory = source_factory
         self.host = host
@@ -276,7 +375,17 @@ class DataStreamingServer:
         self.device = device
         self.clients: Set[Any] = set()
         self.display_clients: Dict[str, DisplayState] = {}
+        self._uploads: Dict[Any, _Upload] = {}
+        self._stats_task: Optional[asyncio.Task] = None
         self._stop_event: Optional[asyncio.Event] = None
+        self.bytes_sent = 0
+        #: the Prometheus plane is not ported yet: every call site is
+        #: guarded, so wiring one later touches none of them
+        self.metrics = None
+        #: cleared by STOP_AUDIO until re-requested (no audio pipeline yet)
+        self._audio_wanted = True
+        #: last xrandr-applied Layout (dedup)
+        self._last_layout = None
         #: closed encoders whose threads may still run; pruned at every
         #: capture-loop start, joined by stop()
         self._retired: list = []
@@ -284,7 +393,8 @@ class DataStreamingServer:
         #: (SELKIES_TPU_FAULTS) and checked at the real call sites
         self.faults = FaultInjector(str(settings.tpu_faults or ""))
         #: fire-and-forget helpers (ws.drop closes, failed-display
-        #: teardown), referenced so they are not collected mid-flight
+        #: teardown, slow-client kills), referenced so they are not
+        #: collected mid-flight
         self._bg_tasks: Set[asyncio.Task] = set()
         #: multi-session lanes (tpu_mesh): one scheduler per (geometry,
         #: profile) bucket, built at the bucket's first join
@@ -299,10 +409,108 @@ class DataStreamingServer:
         #: displays served from a lane, and displays the lanes could not
         #: take that were served by a solo encoder instead
         self.mesh_stats = {"bucketed": 0, "solo_fallback": 0}
-        #: display-plane admission: joins queued for a lane slot, and
-        #: joins shed with KILL server_full
-        self.edge_stats: Dict[str, int] = {"sessions_queued": 0,
-                                           "sessions_rejected": 0}
+        #: when each bucket last lost its last session (see
+        #: _retire_idle_buckets)
+        self._bucket_idle_since: Dict[Tuple[int, int, str], float] = {}
+        #: the one thread that ticks every bucket's scheduler (the JAX
+        #: server gives each its own; see parallel.coordinator.LaneTicker)
+        self._lane_ticker = None
+        # --- the wire edge ---
+        #: per-class rate limits; a bad rate_limits spec fails construction
+        #: loudly, like a bad fault spec
+        self._limits = parse_limit_spec(str(settings.rate_limits or ""))
+        #: per-connection protocol armor (error budget + class buckets)
+        self._guards: Dict[Any, ConnectionGuard] = {}
+        #: per-client bounded send queues wrapped around the fan-out path
+        self._send_queues: Dict[Any, _ClientSendQueue] = {}
+        #: the edge's counters (rate_limited is per message class)
+        self.edge_stats: Dict[str, Any] = {
+            "protocol_errors": 0,
+            "rate_limited": {},
+            "upload_paced": 0,
+            "sessions_rejected": 0,
+            "sessions_queued": 0,
+            "slow_client_evictions": 0,
+            "reconfigure_runs": 0,
+            "reconfigure_coalesced": 0,
+        }
+        #: debounced, serialized display reconfiguration: a resize storm
+        #: coalesces into one reconfigure, not one per message
+        self._reconfig_task: Optional[asyncio.Task] = None
+        self._reconfig_dirty = False
+        #: admission-control load shedding (driven by sustained encoder
+        #: drops observed in the stats loop)
+        self._load_shedding = False
+        self._shed_strikes = 0
+        self._last_dropped_total = 0
+
+    # ------------------------------------------------------------------
+    # broadcast primitives
+
+    def broadcast(self, message) -> None:
+        if self.clients:
+            self._fanout(self.clients, message)
+            if isinstance(message, (bytes, bytearray)):
+                self.bytes_sent += len(message) * len(self.clients)
+
+    def _fanout(self, targets, message) -> None:
+        """Fan one message out through the per-client bounded send queues:
+        text is control (never dropped), binary media is droppable — a slow
+        consumer converges to the live edge of the stream or is evicted,
+        and never stalls the capture loop. Targets without a queue (added
+        outside ws_handler, or mid-handshake) get the direct transport
+        broadcast."""
+        control = isinstance(message, str)
+        direct = []
+        for t in targets:
+            cq = self._send_queues.get(t)
+            if cq is None:
+                direct.append(t)
+            elif not cq.evicted:
+                cq.offer(message, control)
+        if direct:
+            _ws_broadcast(direct, message)
+
+    def _evict_slow_client(self, cq: _ClientSendQueue) -> None:
+        """Sustained send-queue overflow: this consumer is not keeping up
+        and dropping video no longer helps — close its one socket (with a
+        best-effort KILL) so its backlog stops costing memory."""
+        self.edge_stats["slow_client_evictions"] += 1
+        if self.metrics is not None:
+            self.metrics.inc_slow_client_eviction()
+        logger.warning(
+            "evicting slow consumer: queue depth %d, %d video drops",
+            len(cq.q), cq.q.dropped_video_total)
+        cq.close()   # the drainer may be wedged inside a stalled send
+        ws = cq.ws
+
+        async def _kill():
+            try:
+                await asyncio.wait_for(ws.send("KILL slow_consumer"), 1.0)
+            except Exception:
+                pass
+            await ws.close()
+
+        self._spawn_background(_kill(), "evict-slow-client")
+
+    def _viewers_of(self, display_id: str) -> Set[Any]:
+        """Primary-display media goes to every client; secondary displays
+        only to their owner."""
+        if display_id == "primary":
+            return set(self.clients)
+        st = self.display_clients.get(display_id)
+        return {st.ws} if st and st.ws else set()
+
+    def _display_of(self, websocket) -> Optional[DisplayState]:
+        for st in self.display_clients.values():
+            if st.ws is websocket:
+                return st
+        # viewers (shared mode) ride the primary display
+        return self.display_clients.get("primary")
+
+    def _display_id_of(self, websocket) -> str:
+        st = self._display_of(websocket)
+        return st.display_id if st else "primary"
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -316,6 +524,8 @@ class DataStreamingServer:
 
         self._stop_event = asyncio.Event()
         bind_attempts = 0
+        # transport-level armor: an unbounded max_size lets one client
+        # frame buffer arbitrary memory before any handler runs
         cap_mb = int(getattr(self.settings, "max_ws_message_mb", 0))
         max_size = cap_mb * 1024 * 1024 if cap_mb > 0 else None
         while not self._stop_event.is_set():
@@ -340,6 +550,16 @@ class DataStreamingServer:
                 await asyncio.sleep(delay)
 
     async def stop(self) -> None:
+        task = self._reconfig_task
+        if task is not None and not task.done():
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+        for cq in list(self._send_queues.values()):
+            cq.close()
+        self._send_queues.clear()
         for st in list(self.display_clients.values()):
             await self._stop_display(st)
         # closed encoders' threads finish their last device call off the
@@ -350,11 +570,38 @@ class DataStreamingServer:
         for coord in self.mesh_coordinators.values():
             coord.stop()
         self.mesh_coordinators.clear()
+        if self._stats_task:
+            self._stats_task.cancel()
         if self._stop_event:
             self._stop_event.set()
 
     # ------------------------------------------------------------------
-    # display-plane admission: scheduler verdicts (docs/scaling.md)
+    # connection handling
+
+    async def _admit(self, websocket) -> bool:
+        """Admission control at accept time: a full or load-shedding
+        server rejects the connection gracefully — a wire KILL the client
+        UI can show — instead of degrading every session."""
+        maxc = int(self.settings.max_clients or 0)
+        full = bool(maxc and len(self.clients) >= maxc)
+        if not full and not self._load_shedding:
+            return True
+        self.edge_stats["sessions_rejected"] += 1
+        if self.metrics is not None:
+            self.metrics.inc_sessions_rejected()
+        logger.warning("connection rejected: %s",
+                       "server_full" if full else "load_shedding")
+        try:
+            await websocket.send("KILL server_full")
+        except Exception:
+            pass
+        try:
+            await websocket.close()
+        except Exception:
+            pass
+        return False
+
+    # -- display-plane admission: scheduler verdicts --
 
     def _mesh_profile_of(self, overrides: Dict[str, Any]) -> str:
         return str(overrides.get("encoder", self.settings.encoder))
@@ -363,16 +610,17 @@ class DataStreamingServer:
                                    overrides: Dict[str, Any]) -> str:
         """``admit`` / ``queue`` / ``shed`` for a NEW display join.
 
-        The flat ``max_displays`` cap is the hard backstop; below it the
-        verdict comes from live lane capacity: a join whose geometry
-        bucket has a free or growable slot is admitted, a join into a
-        momentarily full scheduler queues (leave churn frees slots within
-        the queue window), and a full scheduler sheds. Displays the lanes
-        cannot serve (other profiles, watermark, failed geometries) are
-        admitted toward their solo pipelines, and ``mesh_overflow_solo``
-        sends overflow to solo pipelines wholesale. (The JAX server also
-        sheds while its wire edge is load shedding; the port has no load
-        shedding yet.)"""
+        A load-shedding server sheds; the flat ``max_displays`` cap is the
+        hard backstop; below it the verdict comes from live lane capacity:
+        a join whose geometry bucket has a free or growable slot is
+        admitted, a join into a momentarily full scheduler queues (leave
+        and resize churn frees slots within the queue window), and a full
+        scheduler sheds. Displays the lanes cannot serve (other profiles,
+        watermark, failed geometries) are admitted toward their solo
+        pipelines, and ``mesh_overflow_solo`` sends overflow to solo
+        pipelines wholesale."""
+        if self._load_shedding:
+            return "shed"
         maxd = int(self.settings.max_displays or 0)
         if maxd and len(self.display_clients) >= maxd:
             return "shed"
@@ -404,6 +652,8 @@ class DataStreamingServer:
         a lane slot to free, then resolve to admit or shed. Bounded by
         construction: a queued client is never parked forever."""
         self.edge_stats["sessions_queued"] += 1
+        if self.metrics is not None:
+            self.metrics.inc_sessions_queued()
         wait_ms = int(self.settings.admission_queue_ms or 0)
         deadline = time.monotonic() + wait_ms / 1000.0
         while True:
@@ -431,25 +681,15 @@ class DataStreamingServer:
                 agg[k] += int(cap.get(k, 0))
         return agg
 
-    # ------------------------------------------------------------------
-    # connection handling
-
-    def _viewers_of(self, display_id: str) -> Set[Any]:
-        """Primary-display media goes to every client; secondary displays
-        only to their owner."""
-        if display_id == "primary":
-            return set(self.clients)
-        st = self.display_clients.get(display_id)
-        return {st.ws} if st and st.ws else set()
-
-    def _display_of(self, websocket) -> Optional[DisplayState]:
-        for st in self.display_clients.values():
-            if st.ws is websocket:
-                return st
-        return self.display_clients.get("primary")
-
     async def ws_handler(self, websocket) -> None:
+        if not await self._admit(websocket):
+            return
+        self._guards[websocket] = ConnectionGuard(
+            limits=self._limits,
+            error_budget=int(self.settings.protocol_error_budget))
         self.clients.add(websocket)
+        if self.metrics is not None:
+            self.metrics.set_clients(len(self.clients))
         primary = self.display_clients.get("primary")
         if primary is not None and primary.encoder is not None:
             # late-joining viewer: damage gating would never send it the
@@ -457,60 +697,283 @@ class DataStreamingServer:
             primary.encoder.force_keyframe()
         try:
             await websocket.send("MODE websockets")
+            if self.app and self.app.last_cursor_sent:
+                await websocket.send(
+                    "cursor," + json.dumps(self.app.last_cursor_sent))
             await websocket.send(json.dumps(self.settings.schema_payload()))
+            # handshake done: fan-out to this client now rides its bounded
+            # send queue (slow-consumer isolation + eviction)
+            self._send_queues[websocket] = _ClientSendQueue(
+                websocket,
+                BoundedSendQueue(
+                    max_video=int(self.settings.max_send_queue),
+                    evict_after_s=float(int(
+                        self.settings.slow_client_evict_s))),
+                on_evict=self._evict_slow_client)
+            if self._stats_task is None or self._stats_task.done():
+                self._stats_task = asyncio.create_task(self._stats_loop())
             async for message in websocket:
-                if isinstance(message, (bytes, bytearray)):
-                    logger.debug("client binary frames are not served yet")
-                    continue
+                # per-message exception boundary: a malformed or
+                # handler-crashing message is dropped and charged against
+                # this connection's error budget — it never ends the
+                # session the way a transport error does
                 try:
-                    await self._handle_text(websocket, message)
+                    if isinstance(message, (bytes, bytearray)):
+                        await self._handle_binary(websocket, message)
+                    else:
+                        await self._handle_text(websocket, message)
                 except Exception as e:
                     if (isinstance(e, ConnectionError)
-                            or type(e).__name__.startswith("ConnectionClosed")):
+                            or type(e).__name__.startswith(
+                                "ConnectionClosed")):
+                        # a handler failing to send to a dead peer is
+                        # transport death, not client hostility: end the
+                        # session instead of charging the budget
                         raise
-                    # a malformed message costs only itself
-                    logger.debug("dropped client message: %r", e)
-        except Exception as e:
+                    self.edge_stats["protocol_errors"] += 1
+                    if self.metrics is not None:
+                        self.metrics.inc_protocol_errors()
+                    logger.debug("protocol error (dropped message): %r", e)
+                    guard = self._guards.get(websocket)
+                    if guard is not None and guard.record_error():
+                        logger.warning(
+                            "error budget exhausted after %d protocol "
+                            "errors; killing abusive client",
+                            guard.errors_total)
+                        try:
+                            await websocket.send("KILL protocol_abuse")
+                        except Exception:
+                            pass
+                        await websocket.close()
+                        break
+        except Exception as e:  # connection errors end the session
             logger.debug("ws session ended: %r", e)
         finally:
             self.clients.discard(websocket)
+            self._guards.pop(websocket, None)
+            cq = self._send_queues.pop(websocket, None)
+            if cq is not None:
+                cq.close()
+            if self.metrics is not None:
+                self.metrics.set_clients(len(self.clients))
+            up = self._uploads.pop(websocket, None)
+            if up is not None:
+                # never leak the fd or the partial file of an interrupted
+                # upload
+                self._abort_upload(up)
+                logger.info("upload aborted by disconnect: %s (%d/%d bytes)",
+                            up.path, up.received, up.size)
+            dropped = False
             for st in list(self.display_clients.values()):
                 if st.ws is websocket:
+                    # deregister first: a concurrent reconfigure worker
+                    # must see the display as gone before our stop lands,
+                    # or it can restart a zombie pipeline holding its
+                    # scheduler slot
                     del self.display_clients[st.display_id]
                     await self._stop_display(st)
+                    dropped = True
+            if dropped and self.display_clients:
+                # surviving displays reflow into a smaller framebuffer
+                self._schedule_reconfigure()
+
+    # ------------------------------------------------------------------
+    # text protocol
+
+    def _count_rate_limited(self, cls: str) -> None:
+        counts = self.edge_stats["rate_limited"]
+        counts[cls] = counts.get(cls, 0) + 1
+        if self.metrics is not None:
+            self.metrics.inc_rate_limited(cls)
+
+    def _count_upload_paced(self) -> None:
+        # pacing accepts the message after a sleep: a separate counter so
+        # a fast healthy upload never reads as "dropped by rate limiting"
+        self.edge_stats["upload_paced"] += 1
+        if self.metrics is not None:
+            self.metrics.inc_upload_paced()
 
     async def _handle_text(self, websocket, message: str) -> None:
-        msg = parse_text_message(message)
+        msg = parse_text_message(message)   # ProtocolError → boundary
         verb = msg.verb
-        st = self._display_of(websocket)
-        owner = st is not None and st.ws is websocket
+
+        guard = self._guards.get(websocket)
+        if guard is not None:
+            cls = classify_verb(verb)
+            if cls == "upload":
+                # stateful upload verbs are paced like upload bytes, never
+                # dropped — a dropped FILE_UPLOAD_END leaves the fd open
+                # and splices the next file into it
+                wait = guard.throttle("upload", UPLOAD_VERB_COST)
+                if wait > 0:
+                    self._count_upload_paced()
+                    await asyncio.sleep(wait)
+            elif not guard.allow(cls):
+                self._count_rate_limited(cls)
+                logger.debug("rate-limited %s message %r", cls, verb[:32])
+                return
+
         if verb == "SETTINGS":
             await self._on_settings(websocket, msg.json_body or "{}")
         elif verb == "CLIENT_FRAME_ACK":
-            # only the display's owner acks
-            if owner and msg.args:
+            # only the display's owner acks: a viewer (or a hostile
+            # client) feeding ids into the primary's backpressure state
+            # would wedge the gate for everyone
+            st = self._display_of(websocket)
+            if st and st.ws is websocket and msg.args:
                 try:
                     st.bp.on_client_ack(int(msg.args[0]))
                 except ValueError:
                     pass
-        elif verb == "_f":
-            if owner and msg.args:
-                try:
-                    st.bp.on_client_fps(float(msg.args[0]))
-                except ValueError:
-                    pass
+        elif verb == "r" and len(msg.args) >= 1:
+            await self._on_resize(websocket, msg.args)
         elif verb == "START_VIDEO":
-            if owner:
+            st = self._display_of(websocket)
+            if st and st.ws is websocket:
                 st.video_active = True
                 await self._start_display(st)
-                _ws_broadcast({websocket}, "VIDEO_STARTED")
+                # through the send queue: the reply must not overtake media
+                # already queued ahead of it
+                self._fanout({websocket}, "VIDEO_STARTED")
         elif verb == "STOP_VIDEO":
-            if owner:
+            st = self._display_of(websocket)
+            if st and st.ws is websocket:
                 st.video_active = False
                 await self._stop_display(st)
-                _ws_broadcast({websocket}, "VIDEO_STOPPED")
+                self._fanout({websocket}, "VIDEO_STOPPED")
+        elif verb == "START_AUDIO":
+            self._audio_wanted = True       # no audio pipeline to start yet
+        elif verb == "STOP_AUDIO":
+            self._audio_wanted = False
+        elif verb == "FILE_UPLOAD_START":
+            await self._on_upload_start(websocket, msg.args)
+        elif verb == "FILE_UPLOAD_END":
+            up = self._uploads.pop(websocket, None)
+            if up:
+                up.fobj.close()
+                if up.size and up.received < up.size:
+                    # a short upload is a broken file: remove it and tell
+                    # the client rather than leaving truncated data behind
+                    logger.warning("short upload removed: %s (%d/%d bytes)",
+                                   up.path, up.received, up.size)
+                    try:
+                        os.unlink(up.path)
+                    except OSError:
+                        pass
+                    await websocket.send(
+                        f"FILE_UPLOAD_ERROR:{up.rel_path}:"
+                        f"short upload ({up.received}/{up.size} bytes)")
+                else:
+                    logger.info("upload finished: %s (%d bytes)",
+                                up.path, up.received)
+        elif verb == "FILE_UPLOAD_ERROR":
+            up = self._uploads.pop(websocket, None)
+            if up:
+                self._abort_upload(up)
+        elif verb == "s" and msg.args:
+            # scale request ("s,<scale>"): HiDPI factor → Xft DPI
+            try:
+                scale = min(4.0, max(0.5, float(msg.args[0])))
+                await self._apply_dpi(int(round(96 * scale)))
+            except ValueError:
+                pass
+        elif verb == "SET_NATIVE_CURSOR_RENDERING" and msg.args:
+            # the client renders the cursor itself: re-send the last one
+            # so the toggle takes effect at once
+            if self.app is not None and self.app.last_cursor_sent:
+                try:
+                    await websocket.send(
+                        "cursor," + json.dumps(self.app.last_cursor_sent))
+                except Exception:
+                    pass
+        elif verb == "cmd":
+            if self.settings.command_enabled.value and msg.args:
+                await self._run_command(msg.args[0])
         else:
-            logger.debug("verb %r is not served by this slice", verb)
+            # everything else is input-plane grammar, forwarded whole
+            if verb == "_f":
+                st = self._display_of(websocket)
+                if st and st.ws is websocket and msg.args:
+                    try:
+                        fps = float(msg.args[0])
+                        st.bp.on_client_fps(fps)
+                        if self.metrics is not None:
+                            self.metrics.set_fps(fps)
+                    except ValueError:
+                        pass
+            elif verb == "_l" and msg.args and self.metrics is not None:
+                try:
+                    self.metrics.set_latency(float(msg.args[0]))
+                except ValueError:
+                    pass
+            if self.input_handler is not None:
+                await self.input_handler.on_message(
+                    message, self._display_id_of(websocket))
+            else:
+                logger.debug("unhandled message verb %r", verb)
+
+    # ------------------------------------------------------------------
+    # binary protocol (client → server)
+
+    async def _handle_binary(self, websocket, data: bytes) -> None:
+        if not data:
+            raise ProtocolError("empty binary frame")
+        guard = self._guards.get(websocket)
+        t = data[0]
+        if t == 0x01:  # file chunk
+            if guard is not None:
+                # uploads are paced, not dropped (a dropped chunk corrupts
+                # the file): sleeping here stops reading the socket, which
+                # backpressures the sender through TCP. Charged before the
+                # open-upload check, so orphan 0x01 floods are metered too
+                wait = guard.throttle("upload", len(data))
+                if wait > 0:
+                    self._count_upload_paced()
+                    await asyncio.sleep(wait)
+            up = self._uploads.get(websocket)
+            if up:
+                # the absolute cap holds even when the client declares
+                # size 0 (or lies): the declared size is a courtesy check
+                cap = self.settings.max_upload_mb * 1024 * 1024
+                limit = min(up.size, cap) if up.size else cap
+                if limit and up.received + len(data) - 1 > limit:
+                    self._uploads.pop(websocket, None)
+                    self._abort_upload(up)
+                    await websocket.send(
+                        f"FILE_UPLOAD_ERROR:{up.rel_path}:"
+                        "exceeded size limit")
+                    return
+                up.fobj.write(data[1:])
+                up.received += len(data) - 1
+        elif t == 0x02:  # microphone PCM
+            cap = int(self.settings.max_mic_chunk_kb) * 1024
+            if cap and len(data) - 1 > cap:
+                raise ProtocolError(
+                    f"mic chunk of {len(data) - 1} bytes exceeds "
+                    f"{cap}-byte cap")
+            if guard is not None and not guard.allow("mic", len(data)):
+                self._count_rate_limited("mic")
+                return
+            # an admitted chunk ends here: there is no audio pipeline yet
+        else:
+            # the canonical demux raises the precise rejection (wrong
+            # direction 0x00/0x03/0x04 vs unknown)
+            unpack_client_binary(data)
+            raise ProtocolError(f"unroutable client binary type 0x{t:02x}")
+
+    def _abort_upload(self, up: _Upload) -> None:
+        """Close the fd and remove the partial file of a dead upload."""
+        try:
+            up.fobj.close()
+        except Exception:
+            pass
+        try:
+            os.unlink(up.path)
+        except OSError:
+            pass
+
+    # ------------------------------------------------------------------
+    # settings negotiation
 
     async def _on_settings(self, websocket, body: str) -> None:
         try:
@@ -524,7 +987,7 @@ class DataStreamingServer:
             await websocket.close()
             return
         # parse/clamp every value before touching state: garbage costs only
-        # itself
+        # itself, never a half-registered zombie display
         known = {s.name for s in SETTING_DEFINITIONS}
         applied: Dict[str, Any] = {}
         width = height = None
@@ -542,11 +1005,19 @@ class DataStreamingServer:
                 logger.warning("ignoring bad client setting %s=%r", key, value)
 
         st = self.display_clients.get(display_id)
+        if st and st.ws is not None and st.ws is not websocket:
+            # superseded client for this display: kill the old one
+            try:
+                await st.ws.send("KILL Display taken over by another client.")
+                await st.ws.close()
+            except Exception:
+                pass
         if st is None:
             # admission control on the display plane: each display is a
             # capture+encode pipeline, far heavier than a viewer — the
-            # verdict comes from live lane capacity (admit / queue /
-            # shed), with max_displays as the hard backstop above it
+            # verdict comes from load shedding and live lane capacity
+            # (admit / queue / shed), with max_displays as the hard
+            # backstop
             verdict = self._display_admission_verdict(
                 width or 1024, height or 768, applied)
             if verdict == "queue":
@@ -554,6 +1025,8 @@ class DataStreamingServer:
                     width or 1024, height or 768, applied)
             if verdict != "admit":
                 self.edge_stats["sessions_rejected"] += 1
+                if self.metrics is not None:
+                    self.metrics.inc_sessions_rejected()
                 logger.warning("display %s rejected (%s): %d displays live",
                                display_id, verdict, len(self.display_clients))
                 await websocket.send("KILL server_full")
@@ -561,18 +1034,19 @@ class DataStreamingServer:
                 return
             # the queue wait yields the loop: another handshake may have
             # registered this display meanwhile — adopt it (superseding
-            # its client below), don't clobber it
+            # its client), don't clobber it
             st = self.display_clients.get(display_id)
-        same_owner = st is not None and st.ws is websocket
-        if st is not None and st.ws is not None and not same_owner:
-            try:
-                await st.ws.send("KILL Display taken over by another client.")
-                await st.ws.close()
-            except Exception:
-                pass
-        if st is None:
-            st = DisplayState(display_id=display_id)
-            self.display_clients[display_id] = st
+            if st is not None and st.ws is not None \
+                    and st.ws is not websocket:
+                try:
+                    await st.ws.send(
+                        "KILL Display taken over by another client.")
+                    await st.ws.close()
+                except Exception:
+                    pass
+            if st is None:
+                st = DisplayState(display_id=display_id)
+                self.display_clients[display_id] = st
         st.ws = websocket
         if width is not None:
             st.width = width
@@ -582,21 +1056,155 @@ class DataStreamingServer:
         if "framerate" in applied:
             st.bp.framerate = float(applied["framerate"])
         logger.info("client settings for %s: %s", display_id, applied)
-        async with st.lock:
-            running = (st.capture_task is not None
-                       and not st.capture_task.done())
-            if (same_owner and running
-                    and st.running_geom == (st.width, st.height)
-                    and st.running_config == (st.overrides,
-                                              st.bp.framerate)):
-                return          # started with these settings: keep it
-            # settings define the pipeline: (re)start it with them
-            await self._stop_display_locked(st)
-            if st.video_active:
-                await self._start_display_locked(st)
+
+        if "scaling_dpi" in applied:
+            await self._apply_dpi(int(applied["scaling_dpi"]))
+        self._schedule_reconfigure()
+
+    async def _apply_dpi(self, dpi: int) -> None:
+        from ..display import DpiManager
+
+        try:
+            await asyncio.to_thread(DpiManager().set_dpi, dpi)
+        except ValueError as e:
+            logger.warning("dpi rejected: %s", e)
+
+    async def _on_resize(self, websocket, args) -> None:
+        if self.settings.is_manual_resolution_mode.value:
+            return
+        try:
+            res = args[0]
+            display_id = args[1] if len(args) > 1 else "primary"
+            w, h = (int(v) for v in res.split("x"))
+        except (ValueError, IndexError):
+            return
+        st = self.display_clients.get(display_id)
+        if not st or st.ws is not websocket:
+            # resizing is owner-only: a viewer must not force
+            # reconfigurations of someone else's display
+            return
+        st.width, st.height = _clamp_dim(w), _clamp_dim(h)
+        self._schedule_reconfigure()
+        self.broadcast(json.dumps({
+            "type": "stream_resolution",
+            "width": st.width,
+            "height": st.height,
+        }))
+
+    def _schedule_reconfigure(self) -> None:
+        """Debounce and coalesce display reconfiguration behind one
+        serialized worker task: a client spamming ``r,<WxH>`` costs one
+        reconfiguration per storm, not one per message."""
+        self._reconfig_dirty = True
+        if self._reconfig_task is None or self._reconfig_task.done():
+            self._reconfig_task = asyncio.create_task(
+                self._reconfigure_worker())
+        else:
+            self.edge_stats["reconfigure_coalesced"] += 1
+            if self.metrics is not None:
+                self.metrics.inc_reconfigure_coalesced()
+
+    async def _reconfigure_worker(self) -> None:
+        try:
+            debounce = max(0, int(self.settings.resize_debounce_ms)) / 1000.0
+            while self._reconfig_dirty:
+                if debounce:
+                    # absorb the rest of the storm before doing the work;
+                    # requests landing mid-run re-arm the dirty flag and
+                    # get one more (batched) pass
+                    await asyncio.sleep(debounce)
+                self._reconfig_dirty = False
+                self.edge_stats["reconfigure_runs"] += 1
+                await self._reconfigure_displays()
+        except asyncio.CancelledError:
+            raise
+        except Exception:
+            # a failed reconfigure must not take the worker down with an
+            # unretrieved exception; the next request starts a fresh one
+            logger.exception("display reconfiguration failed")
+
+    async def _reconfigure_displays(self) -> None:
+        """Stop captures, re-arrange the X screen, then restart active
+        pipelines with their new geometry and offsets.
+
+        With a real X server (xrandr) every capture stops first, so no
+        capture races a shrinking root window. Without one (synthetic
+        capture) the restart is scoped to displays whose geometry or
+        settings changed: under join/leave/resize churn a stop-the-world
+        restart per event would itself be the outage."""
+        from ..display import xrandr_available
+
+        scoped = not xrandr_available()
+        if not scoped:
+            for st in list(self.display_clients.values()):
+                await self._stop_display(st)
+        await self._apply_x11_layout()
+        for st in list(self.display_clients.values()):
+            if not (st.video_active and st.ws is not None):
+                continue
+            # running_geom/_config are what the live pipeline was started
+            # with; st.width/height/overrides carry the request. An
+            # offset-only shift (every join reflows the layout) does not
+            # restart in scoped mode; a settings change does — the
+            # encoder is built from that snapshot
+            changed = (st.running_geom is None
+                       or st.running_geom[:2] != (st.width, st.height)
+                       or st.running_config != (st.overrides,
+                                                st.bp.framerate))
+            running = st.capture_task is not None \
+                and not st.capture_task.done()
+            if scoped and running and not changed:
+                continue        # untouched display keeps streaming
+            if scoped and running:
+                await self._stop_display(st)
+            await self._start_display(st)
+
+    async def _apply_x11_layout(self) -> None:
+        """Arrange the client displays into one framebuffer and mirror it
+        onto the X screen (xrandr modes, --fb, --setmonitor). Always
+        updates the per-display offsets; the xrandr half is skipped on
+        hosts without it or when the layout is unchanged since the last
+        apply."""
+        from ..display import XrandrManager, compute_layout, xrandr_available
+
+        if not self.display_clients:
+            return
+        displays = {d: (st.width, st.height)
+                    for d, st in self.display_clients.items()}
+        primary = self.display_clients.get("primary")
+        position = ((primary.overrides.get("second_screen_position")
+                     if primary else None)
+                    or self.settings.second_screen_position)
+        try:
+            layout = compute_layout(displays, position)
+        except ValueError as e:
+            logger.warning("layout rejected: %s", e)
+            return
+        for p in layout.placements:
+            stp = self.display_clients.get(p.display_id)
+            if stp:
+                stp.x, stp.y = p.x, p.y
+        if not xrandr_available() or layout == self._last_layout:
+            return
+        try:
+            mgr = XrandrManager()
+            if len(layout.placements) == 1:
+                p = layout.placements[0]
+                await asyncio.to_thread(mgr.resize, p.width, p.height)
+            else:
+                await asyncio.to_thread(mgr.apply_layout, layout)
+            self._last_layout = layout
+        except Exception as e:
+            logger.warning("x11 layout apply failed: %s", e)
 
     # ------------------------------------------------------------------
     # capture / encode pipeline per display
+
+    async def reconfigure_display(self, st: DisplayState) -> None:
+        async with st.lock:
+            await self._stop_display_locked(st)
+            if st.video_active:
+                await self._start_display_locked(st)
 
     async def _start_display(self, st: DisplayState) -> None:
         async with st.lock:
@@ -640,7 +1248,7 @@ class DataStreamingServer:
             on_event=on_event)
         st.capture_task = asyncio.create_task(st.supervisor.run())
         st.backpressure_task = asyncio.create_task(st.bp_supervisor.run())
-        st.running_geom = (st.width, st.height)
+        st.running_geom = (st.width, st.height, st.x, st.y)
         st.running_config = (dict(st.overrides), st.bp.framerate)
 
     async def _stop_display_locked(self, st: DisplayState) -> None:
@@ -679,9 +1287,12 @@ class DataStreamingServer:
     async def _reset_frame_ids_and_notify(self, st: DisplayState) -> None:
         st.bp.reset()
         message = f"PIPELINE_RESETTING {st.display_id}"
-        targets = self._viewers_of(st.display_id)
-        if targets:
-            _ws_broadcast(targets, message)
+        if st.display_id == "primary":
+            self.broadcast(message)
+        elif st.ws:
+            # the same per-client queue as the media: the reset keeps its
+            # FIFO place behind the frames already queued
+            self._fanout({st.ws}, message)
 
     async def _capture_loop(self, st: DisplayState) -> None:
         """Source frames → pipelined encode → 0x03/0x04/0x00 fan-out: one
@@ -889,13 +1500,17 @@ class DataStreamingServer:
                     "encoder", st.display_id, *geom[:2])
                 return None
             try:
-                from ..parallel.coordinator import MeshEncodeCoordinator
+                from ..parallel.coordinator import (LaneTicker,
+                                                    MeshEncodeCoordinator)
 
+                if self._lane_ticker is None:
+                    self._lane_ticker = LaneTicker()
                 factory = self.coordinator_factory or MeshEncodeCoordinator
                 coord = factory(
                     spec, int(self.settings.tpu_sessions_per_chip),
                     st.width, st.height, settings=self.settings,
-                    framerate=fps, profile=profile, device=self.device)
+                    framerate=fps, profile=profile, device=self.device,
+                    ticker=self._lane_ticker)
                 # mesh.tick_raise / mesh.slot_raise check the server's
                 # injector at the scheduler's sites
                 coord.faults = self.faults
@@ -927,11 +1542,15 @@ class DataStreamingServer:
 
     def _emit_frame(self, st: DisplayState, frame_id: int, stripes,
                     encoder) -> None:
+        """Wire-pack one harvested frame and fan it out to the display's
+        viewers through their send queues."""
         viewers = self._viewers_of(st.display_id)
         if not viewers:
             return
         for s in stripes:
-            _ws_broadcast(viewers, _pack_stripe(frame_id, s, encoder))
+            chunk = _pack_stripe(frame_id, s, encoder)
+            self._fanout(viewers, chunk)
+            self.bytes_sent += len(chunk) * len(viewers)
 
     async def _backpressure_loop(self, st: DisplayState) -> None:
         sup = st.bp_supervisor
@@ -1059,7 +1678,219 @@ class DataStreamingServer:
 
     def _broadcast_health(self) -> None:
         try:
-            if self.clients:
-                _ws_broadcast(set(self.clients), self._health_payload())
+            self.broadcast(self._health_payload())
         except Exception:
             logger.exception("health broadcast failed")
+
+    def _update_load_shed(self) -> None:
+        """Admission-control load shedding (stats-tick cadence): when the
+        encode pipelines report sustained frame drops — the card can no
+        longer keep up with the admitted load — stop admitting new
+        connections until the drop rate recovers. Existing sessions keep
+        their backpressure and degradation; shedding only protects them
+        from more load."""
+        threshold = int(self.settings.shed_drop_threshold or 0)
+        if threshold <= 0:
+            self._load_shedding = False
+            return
+        total = 0
+        for st in self.display_clients.values():
+            enc = st.encoder
+            if enc is not None and hasattr(enc, "stats"):
+                try:
+                    total += int(enc.stats().get("frames_dropped", 0))
+                except Exception:
+                    pass
+        delta = total - self._last_dropped_total
+        if delta < 0:
+            # a supervised restart replaced an encoder (its cumulative
+            # counter restarted from zero): the new encoder's drops are
+            # all new drops
+            delta = total
+        self._last_dropped_total = total
+        if delta >= threshold:
+            self._shed_strikes += 1
+        else:
+            self._shed_strikes = 0
+        shedding = self._shed_strikes >= 2
+        if shedding != self._load_shedding:
+            logger.warning(
+                "load shedding %s (%d frames dropped this tick, "
+                "threshold %d)",
+                "engaged" if shedding else "released", delta, threshold)
+        self._load_shedding = shedding
+
+    async def set_framerate(self, fps: float) -> None:
+        """Apply a new target framerate to every active display (each
+        running pipeline restarts with it)."""
+        fps = float(self.settings.framerate.clamp(int(fps)))
+        for st in list(self.display_clients.values()):
+            st.bp.framerate = fps
+            if st.capture_task is not None and not st.capture_task.done():
+                await self.reconfigure_display(st)
+
+    # ------------------------------------------------------------------
+    # file upload (path-sanitized)
+
+    async def _on_upload_start(self, websocket, args) -> None:
+        if "upload" not in self.settings.file_transfers:
+            await websocket.send("FILE_UPLOAD_ERROR:GENERAL:uploads disabled")
+            return
+        try:
+            rel_path = args[0]
+            size = int(args[1]) if len(args) > 1 and args[1] else 0
+        except (ValueError, IndexError):
+            await websocket.send("FILE_UPLOAD_ERROR:GENERAL:bad upload header")
+            return
+        root = os.path.realpath(upload_dir())
+        norm = os.path.normpath(rel_path)
+        if norm.startswith(("/", "\\")) or ".." in norm.split(os.sep) \
+                or any(ord(c) < 0x20 or c in '"\x7f' for c in norm):
+            # control characters and quotes in names would otherwise reach
+            # the file listing and Content-Disposition planes
+            await websocket.send(f"FILE_UPLOAD_ERROR:{rel_path}:invalid path")
+            return
+        target = os.path.realpath(os.path.join(root, norm))
+        if not target.startswith(root + os.sep):
+            await websocket.send(f"FILE_UPLOAD_ERROR:{rel_path}:invalid path")
+            return
+        os.makedirs(os.path.dirname(target), exist_ok=True)
+        old = self._uploads.pop(websocket, None)
+        if old:
+            # superseded mid-flight: remove the truncated partial too
+            self._abort_upload(old)
+        self._uploads[websocket] = _Upload(
+            path=target, rel_path=rel_path, fobj=open(target, "wb"), size=size)
+        logger.info("upload started: %s (%d bytes)", target, size)
+
+    # ------------------------------------------------------------------
+    # command execution
+
+    async def _run_command(self, command: str) -> None:
+        logger.info("exec: %s", command)
+        try:
+            await asyncio.create_subprocess_shell(
+                command,
+                stdout=asyncio.subprocess.DEVNULL,
+                stderr=asyncio.subprocess.DEVNULL,
+            )
+        except OSError as e:
+            logger.warning("command failed to spawn: %s", e)
+
+    # ------------------------------------------------------------------
+    # stats feed
+
+    async def _retire_idle_buckets(self) -> None:
+        """Stop and drop the lane scheduler of a bucket that has had no
+        session for its ``lane_retire_s``. A scheduler keeps its last lane
+        warm for the next joiner, so without this a geometry that displays
+        resized away from would hold its lane's device planes for good
+        (and a slot of the MESH_BUCKET_CAP). The JAX server keeps every
+        bucket it built."""
+        now = time.monotonic()
+        for geom, coord in list(self.mesh_coordinators.items()):
+            if coord.active_sessions:
+                self._bucket_idle_since.pop(geom, None)
+                continue
+            since = self._bucket_idle_since.setdefault(geom, now)
+            if now - since >= coord.lane_retire_s:
+                del self.mesh_coordinators[geom]
+                del self._bucket_idle_since[geom]
+                await asyncio.to_thread(coord.stop)   # joins its thread
+                logger.info("lanes: bucket %dx%d (%s) retired, no session "
+                            "for %.1fs", *geom, now - since)
+
+    async def _stats_loop(self) -> None:
+        prev_bytes = 0
+        while True:
+            await asyncio.sleep(STATS_INTERVAL_S)
+            try:
+                self._update_load_shed()
+                await self._retire_idle_buckets()
+                self.broadcast(json.dumps(self._collect_system_stats()))
+                net = {
+                    "type": "network_stats",
+                    "bytes_sent_delta": self.bytes_sent - prev_bytes,
+                    "interval_s": STATS_INTERVAL_S,
+                }
+                if self.mesh_coordinators or self.mesh_stats["solo_fallback"]:
+                    # lane fallbacks must be observable, not silent;
+                    # "bucketed" is a cumulative acquisition counter, live
+                    # occupancy is reported apart
+                    coords = list(self.mesh_coordinators.values())
+                    net["mesh_buckets"] = len(coords)
+                    net["mesh_acquisitions_total"] = \
+                        self.mesh_stats["bucketed"]
+                    net["mesh_sessions"] = sum(c.active_sessions
+                                               for c in coords)
+                    net["mesh_solo_fallbacks"] = \
+                        self.mesh_stats["solo_fallback"]
+                    net["mesh_tick_errors"] = sum(c.tick_errors_total
+                                                  for c in coords)
+                    net["mesh_worker_restarts"] = sum(
+                        c.worker_restarts_total for c in coords)
+                    sched = self.scheduler_stats()
+                    if sched is not None:
+                        net["mesh_lanes"] = sched["lanes"]
+                        net["mesh_slots_free"] = sched["slots_free"]
+                        net["mesh_quarantined_slots"] = \
+                            sched["quarantined_slots"]
+                    net["mesh_migrations_total"] = sum(
+                        c.migrations_total for c in coords)
+                edge = self.edge_stats
+                if (edge["protocol_errors"] or edge["rate_limited"]
+                        or edge["sessions_rejected"]
+                        or edge["sessions_queued"]
+                        or edge["slow_client_evictions"]):
+                    # hostile-client activity rides the stats feed so a
+                    # dashboardless operator still sees it
+                    net["edge"] = {
+                        "protocol_errors": edge["protocol_errors"],
+                        "rate_limited": dict(edge["rate_limited"]),
+                        "sessions_rejected": edge["sessions_rejected"],
+                        "sessions_queued": edge["sessions_queued"],
+                        "slow_client_evictions":
+                            edge["slow_client_evictions"],
+                        "load_shedding": self._load_shedding,
+                    }
+                prev_bytes = self.bytes_sent
+                self.broadcast(json.dumps(net))
+                if self.display_clients:
+                    self._broadcast_health()
+                gpu = self._collect_gpu_stats()
+                if gpu:
+                    self.broadcast(json.dumps(gpu))
+            except Exception:
+                logger.exception("stats loop error")
+
+    def _collect_system_stats(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"type": "system_stats"}
+        try:
+            import psutil
+
+            out["cpu_percent"] = psutil.cpu_percent()
+            mem = psutil.virtual_memory()
+            out["mem_total"] = mem.total
+            out["mem_used"] = mem.used
+        except ImportError:
+            la1, _, _ = os.getloadavg()
+            out["load_1m"] = la1
+        return out
+
+    def _collect_gpu_stats(self) -> Optional[Dict[str, Any]]:
+        """The card's memory for the client's overlay (the JAX server's
+        TPU occupancy keys): the caching allocator's bytes in use on the
+        server's card and the card's total memory. Neither read waits on
+        a stream; None when the server runs on the CPU."""
+        import torch
+
+        dev = torch.device(self.device if self.device is not None
+                           else "cuda")
+        if dev.type != "cuda" or not torch.cuda.is_available():
+            return None
+        _free, total = torch.cuda.mem_get_info(dev)
+        return {"type": "gpu_stats",
+                "device_count": torch.cuda.device_count(),
+                "platform": "gpu",
+                "bytes_in_use": torch.cuda.memory_allocated(dev),
+                "bytes_limit": total}

@@ -17,6 +17,7 @@ import logging
 import numpy as np
 
 from ..settings import Settings
+from .app import StreamingApp
 from .data_server import DataStreamingServer, default_encoder_factory
 
 logger = logging.getLogger("selkies_tpu_torch")
@@ -56,7 +57,9 @@ async def _amain(settings: Settings, device=None) -> int:
     from .._device import resolve_device
 
     device = resolve_device(device)      # no card and none asked for: raise
-    server = DataStreamingServer(settings, device=device)
+    app = StreamingApp(settings)
+    server = DataStreamingServer(settings, app=app, device=device)
+    app.data_server = server
     warm = asyncio.ensure_future(
         asyncio.to_thread(warm_default_geometry, settings, device))
     serve = asyncio.ensure_future(server.run_server())

@@ -99,6 +99,35 @@ def test_frame_launch_matches_plain_per_plane(cuda_device, h, w):
         assert (d == 0).double().mean().item() >= 0.999
 
 
+@pytest.mark.parametrize("w,h,pad", [(1366, 768, (768, 1376)),
+                                     (2560, 1440, (1472, 2560))])
+def test_frame_launch_at_resize_planes(cuda_device, w, h, pad):
+    """A resized display's JPEG planes (the encoder's padding: 1366 wide
+    pads to 1376, 1440 rows to 23 stripes of 64), made by the encoder's
+    own color conversion on the card: one launch for Y, Cb and Cr, every
+    coefficient equal to the plain version's (stated tolerance: exact)."""
+    from selkies_tpu_torch.ops.color import rgb_to_ycbcr, subsample_420
+
+    enc = JpegStripeEncoder(w, h, stripe_height=64, device=cuda_device)
+    assert (enc.pad_h, enc.pad_w) == pad
+    frame = SyntheticSource(w, h, pattern="desktop", seed=2).next_frame()
+    y, cb, cr = rgb_to_ycbcr(torch.from_numpy(enc._pad(frame)).to(
+        cuda_device))
+    cb, cr = subsample_420(cb), subsample_420(cr)
+    qsel = torch.arange(enc.n_stripes, device=cuda_device,
+                        dtype=torch.int32) % 2
+    row_y = qsel[torch.arange(y.shape[0] // 8, device=cuda_device) // 8]
+    row_c = qsel[torch.arange(cb.shape[0] // 8, device=cuda_device) // 4]
+    planes = [(y, enc._recip_y, row_y), (cb, enc._recip_c, row_c),
+              (cr, enc._recip_c, row_c)]
+    before = dct8_quant_zigzag.launches
+    got = dct8_quant_zigzag(planes)
+    torch.cuda.synchronize()
+    assert dct8_quant_zigzag.launches == before + 1
+    for g, p in zip(got, planes):
+        assert torch.equal(g, dct8_quant_zigzag_plain(*p))
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     recip = torch.from_numpy(_recips()).to(cuda_device)
     row = torch.zeros(2, dtype=torch.int32, device=cuda_device)
@@ -195,6 +224,19 @@ def test_me_mc_kernel_widths(cuda_device, w):
     (1376: 86 MBs; 48: 3 MBs, one block at both stripe edges)."""
     for kind in ("shifted", "lattice"):
         cur, ref = _me_pair(kind, h=128, w=w)
+        _me_check(cuda_device, cur, ref, 64, 12)
+
+
+@pytest.mark.parametrize("w,h,shape", [(1366, 768, (12, 64, 1376)),
+                                       (2560, 1440, (23, 64, 2560))])
+def test_me_mc_kernel_at_resize_shapes(cuda_device, w, h, shape):
+    """The stripes a resized x264enc-striped display hands the kernel (the
+    encoder's own padding; 1376 is 10 whole 128-pixel tiles and a partial
+    one of 6 MBs): every value exactly equal to the plain version's."""
+    enc = H264StripeEncoder(w, h, stripe_height=64, device=cuda_device)
+    assert (enc.n_stripes, enc.stripe_h, enc.pad_w) == shape
+    for kind in ("shifted", "scroll", "lattice", "flat"):
+        cur, ref = _me_pair(kind, h=shape[0] * 64, w=shape[2])
         _me_check(cuda_device, cur, ref, 64, 12)
 
 

@@ -63,6 +63,9 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.parallel\n"
         "import selkies_tpu_torch.parallel.coordinator\n"
         "import selkies_tpu_torch.robustness.slot_health\n"
+        "import selkies_tpu_torch.robustness.ratelimit\n"
+        "import selkies_tpu_torch.display\n"
+        "import selkies_tpu_torch.server.app\n"
         "from selkies_tpu_torch.parallel import MeshStripeEncoder, parse_mesh_spec\n"
         "from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder\n"
         "from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder\n"
