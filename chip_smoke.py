@@ -5,9 +5,10 @@
     python3 chip_smoke.py --dct-planes-of DIR
         # device time of each launch that DIR's checkout of the port makes
         # for one 1080p frame's DCT (an older tree's per-plane launches)
-    python3 chip_smoke.py --served-against DIR
+    python3 chip_smoke.py --served-against DIR [PAIRS]
         # the served phases of this checkout and of DIR's, alternating
-        # in one call (first frame after SETTINGS, frames/s)
+        # in one call, PAIRS of each (default 2; first frame after
+        # SETTINGS, frames/s)
 
 It builds the port's CUDA kernels (and the g++ host coders: H.264 CAVLC and
 the JPEG scan) from the checkout's sources, holds each kernel against its
@@ -83,17 +84,27 @@ and takes a 64 MiB upload while a JPEG display streams, and reads the
 stats feed's ``gpu_stats``. Both kernels are held against their plain
 versions at the resized displays' shapes too.
 
+The other planes: ``server_trace`` serves each profile and a lane of
+four x264enc-striped displays with the flight recorder and the metrics
+plane wired as ``main()`` wires them: every ACKed frame's stages
+(capture, stage, dispatch, fetch_wait, pack, queue, send, ack) in time
+order, no span open after the display stops, ``/healthz``,
+``/debug/trace`` and ``/metrics`` answered, the client's
+``system_health`` with ``stages``, and a 300 ms ``torch.profiler``
+request on the trace route whose trace holds the path's kernel. It runs
+last: its profiler must not overlap the timing phases' windows.
+
 It prints one JSON object per line (setup, server_resize, server_edge as
 they end, then kernels, encoder, h264_encoder,
 h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
 h264_batch, server_h264_batch, server_faults, mesh_encoder, server_mesh,
 jpeg_device_frames, encoder_churn, h264_cross, profile, profile_h264,
-profile_fullframe),
+profile_fullframe, server_trace, total),
 the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result. It imports neither jax nor selkies_tpu, and
-needs neither websockets nor PIL.
+needs neither websockets, prometheus_client, an X server nor PIL.
 """
 
 from __future__ import annotations
@@ -270,6 +281,7 @@ def phase_setup():
         return lines[torch.cuda.current_device()] if lines else "unknown"
 
     card = smi("name,power.limit")
+    CARD["name_power"] = card
     print(card, flush=True)
     clock_mhz = float(smi("clocks.max.sm").split()[0])
     stems = sorted(p[:-3] for p in os.listdir(_build.CSRC) if p.endswith(".cu"))
@@ -296,6 +308,8 @@ def phase_setup():
 
 #: SASS opcode counts of each built kernel, by source stem (phase_setup)
 SASS = {}
+#: the card's name and power limit as nvidia-smi gives them (phase_setup)
+CARD = {}
 
 
 def _main_path_planes(frame_np, enc):
@@ -3265,6 +3279,318 @@ def dct_planes_of(root: str) -> int:
     return 0
 
 
+#: server_trace: ACKed frames per profile, frames per lane display, the
+#: profiler request's length, and the stats feed's period in the phase
+TRACE_FRAMES = 120
+TRACE_LANE_FRAMES = 60
+TRACE_PROFILER_MS = 300
+TRACE_STATS_S = 1.0
+TRACE_TIMEOUT_S = 120.0
+#: the stages every ACKed span carries (``stage`` too where the frame is
+#: staged from the host: the solo paths), in path order
+TRACE_STAGES = ("capture", "dispatch", "fetch_wait", "pack", "queue",
+                "send", "ack")
+#: the device kernel each served profile runs, as torch.profiler names it
+TRACE_KERNEL = {"jpeg": "dct8_quant_zigzag_kernel",
+                "x264enc-striped": "me_mc_kernel",
+                "x264enc": "me_mc_kernel"}
+
+
+def _span_stats(spans) -> dict:
+    """Stage p50/p95 ms, glass-to-glass p50/p95 and encode-only p50 of
+    ACKed spans (FrameTrace objects)."""
+    def pct(vals, q):
+        vals = sorted(vals)
+        return vals[min(len(vals) - 1, int(len(vals) * q / 100.0))] \
+            if vals else None
+
+    from selkies_tpu_torch.observability import STAGES
+
+    stages = {}
+    for stage in STAGES:
+        d = [t.duration_ms(stage) for t in spans if stage in t.spans]
+        if d:
+            stages[stage] = {"p50_ms": pct(d, 50), "p95_ms": pct(d, 95),
+                             "n": len(d)}
+    g2g = [t.total_ms for t in spans]
+    enc = [e for t in spans if (e := t.encode_only_ms) is not None]
+    # time between the marked stages (a frame waiting in the driver's
+    # submit queue, in the pipeline behind earlier frames, or for the
+    # harvesting thread's next poll)
+    gaps = [t.total_ms - sum(t.duration_ms(st) for st in t.spans)
+            for t in spans]
+    return {"stages": stages, "glass_to_glass_p50_ms": pct(g2g, 50),
+            "glass_to_glass_p95_ms": pct(g2g, 95),
+            "encode_only_p50_ms": pct(enc, 50),
+            "between_stages_p50_ms": pct(gaps, 50)}
+
+
+def _check_spans(name: str, spans, staged: bool) -> None:
+    """Every ACKed span carries each stage of its path, in time order
+    (stage starts never decrease along the path)."""
+    want = TRACE_STAGES[:1] + (("stage",) if staged else ()) \
+        + TRACE_STAGES[1:]
+    for t in spans:
+        missing = [st for st in want if st not in t.spans]
+        check(not missing, f"{name}: span {t.frame_id} lacks {missing}: "
+              f"{sorted(t.spans)}")
+        starts = [t.spans[st][0] for st in want]
+        check(all(a <= b for a, b in zip(starts, starts[1:])),
+              f"{name}: span {t.frame_id} out of order: "
+              + str({st: t.spans[st] for st in want}))
+
+
+def _http(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, r.read()
+
+
+async def _trace_capture(metrics, kernel: str) -> dict:
+    """A TRACE_PROFILER_MS request to the profiler route while the
+    display streams: the trace it writes must hold a device event of the
+    path's kernel (taken again, at most 3 times, if CUPTI lost it)."""
+    base = f"http://127.0.0.1:{metrics.http_port}"
+    for attempt in range(3):
+        code, body = await asyncio.to_thread(
+            _http, f"{base}/debug/jax-trace?ms={TRACE_PROFILER_MS}")
+        check(code == 200, f"profiler route answered {code}")
+        info = json.loads(body)
+        with open(info["path"]) as f:
+            events = json.load(f).get("traceEvents", [])
+        hits = [e for e in events if e.get("cat") == "kernel"
+                and kernel in e.get("name", "")]
+        if hits:
+            return {"device_events": info["device_events"],
+                    "kernel_events": len(hits), "attempts": attempt + 1,
+                    "kernel_ms_in_trace": sum(e.get("dur", 0)
+                                              for e in hits) / 1e3}
+    check(False, f"the profiler trace holds no {kernel} event")
+
+
+def phase_server_trace():
+    """The flight recorder and the metrics plane through the served
+    paths: per profile (JPEG, x264enc-striped, x264enc at their device
+    rungs) one 1080p display through ws_handler, wired as ``main()``
+    wires it (``Metrics(port=0)`` with the server's recorder, the
+    profiler route enabled, ``start_http``), every frame ACKed until
+    TRACE_FRAMES are; the ACKed spans' stage breakdown, glass-to-glass and
+    encode-only figures; ``/healthz``, ``/debug/trace`` and ``/metrics``;
+    a profiler request while it streams; the client's ``system_health``
+    with ``stages``; terminal marks and open spans after the display
+    stops (0). Then four x264enc-striped displays on one lane. Launch
+    counts from 0 just before each path, read just after. Returns (line,
+    launches by path)."""
+    import torch
+
+    from selkies_tpu_torch.observability import metrics as obs_metrics
+    from selkies_tpu_torch.observability import Metrics
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+    from selkies_tpu_torch.protocol.wire import unpack_binary
+    from selkies_tpu_torch.robustness import InProcessClient
+    from selkies_tpu_torch.server import data_server
+    from selkies_tpu_torch.settings import Settings
+
+    def wire(server):
+        m = Metrics(port=0)
+        m.recorder = server.recorder
+        m.jax_trace_enabled = True
+        check(m.start_http(), "metrics endpoint did not bind")
+        server.metrics = m
+        server.recorder.metrics = m
+        return m
+
+    def terminals(rec) -> dict:
+        out = {}
+        for t in rec._completed():
+            out[t.terminal] = out.get(t.terminal, 0) + 1
+        return out
+
+    async def solo(profile: str) -> dict:
+        wire_type = SERVER_PHASES[profile][1]
+        server = data_server.DataStreamingServer(
+            Settings(argv=[], env={"SELKIES_PORT": "0",
+                                   "SELKIES_ENCODER": profile}),
+            device=DEVICE)
+        m = wire(server)
+        kernel = dct8_quant_zigzag if profile == "jpeg" else me_mc_stripes
+        dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+        ws = InProcessClient()
+        task = asyncio.create_task(server.ws_handler(ws))
+        ws.feed("SETTINGS," + json.dumps({
+            "displayId": "primary", "initialClientWidth": W,
+            "initialClientHeight": H, "framerate": 60}))
+        acked, seen, health, t_first = [], 0, [], None
+        t0 = time.monotonic()
+        while len(acked) < TRACE_FRAMES \
+                and time.monotonic() - t0 < TRACE_TIMEOUT_S:
+            await asyncio.sleep(0.002)
+            for msg in ws.sent[seen:]:
+                if isinstance(msg, (bytes, bytearray)):
+                    check(msg[0] == wire_type, f"{profile}: type {msg[0]}")
+                    f = unpack_binary(bytes(msg))
+                    if f.frame_id not in acked:
+                        acked.append(f.frame_id)
+                        t_first = t_first or time.monotonic()
+                        ws.feed(f"CLIENT_FRAME_ACK {f.frame_id}")
+                elif '"system_health"' in msg:
+                    health.append(json.loads(msg))
+            seen = len(ws.sent)
+        t_acked = time.monotonic() - (t_first or t0)
+        check(len(acked) >= TRACE_FRAMES,
+              f"{profile}: {len(acked)} frames ACKed")
+        await asyncio.sleep(0.1)            # the last ACKs land
+        rec = server.recorder
+        spans = [t for t in rec._completed() if t.terminal == "acked"]
+        spans = sorted(spans, key=lambda t: t.t0)[:TRACE_FRAMES]
+        _check_spans(profile, spans, staged=True)
+        stats = _span_stats(spans)
+        base = f"http://127.0.0.1:{m.http_port}"
+        code, _ = await asyncio.to_thread(_http, base + "/healthz")
+        check(code == 200, f"/healthz answered {code}")
+        code, body = await asyncio.to_thread(_http, base + "/debug/trace?s=60")
+        events = json.loads(body)["traceEvents"]
+        check(code == 200 and any(
+            e.get("ph") == "X" and e["args"]["display"] == "primary"
+            for e in events), "/debug/trace holds no span of the display")
+        code, body = await asyncio.to_thread(_http, base + "/metrics")
+        if obs_metrics.HAVE_PROM:
+            check(b"frame_stage_ms" in body and b"glass_to_glass_ms" in body,
+                  "/metrics lacks the stage series")
+        prof = await _trace_capture(m, TRACE_KERNEL[profile])
+        while not any(d.get("stages") for h in health
+                      for d in h["displays"].values()) \
+                and time.monotonic() - t0 < TRACE_TIMEOUT_S + 10:
+            await asyncio.sleep(0.05)
+            health += [json.loads(x) for x in ws.sent[seen:]
+                       if isinstance(x, str) and '"system_health"' in x]
+            seen = len(ws.sent)
+        with_stages = [h for h in health
+                       if h["displays"].get("primary", {}).get("stages")]
+        check(with_stages, f"{profile}: no system_health with stages")
+        st = server.display_clients["primary"]
+        lad, sup = st.ladder.state(), st.supervisor.stats()
+        check(lad["rung"] == "device" and lad["failures_total"] == 0
+              and sup["restarts_total"] == 0,
+              f"{profile}: encoder failed on the traced path: {lad} {sup}")
+        await ws.close()
+        await asyncio.wait_for(task, 30.0)
+        await server.stop()
+        m.stop_http()
+        launches = kernel.launches
+        check(launches > 0, f"{profile}: the path launched no kernel")
+        check(rec.open_spans() == 0,
+              f"{profile}: {rec.open_spans()} spans open after stop")
+        return {"profile": profile, "frames_acked": len(acked),
+                "first_frame_s": t_first - t0,
+                "frames_per_s_after_first": (len(acked) - 1) / t_acked,
+                **stats, "fetch_wait_gt0": sum(
+                    1 for t in spans if t.duration_ms("fetch_wait") > 0),
+                "terminals": terminals(rec),
+                "open_spans_after_stop": rec.open_spans(),
+                "health_stages": with_stages[-1]["displays"]["primary"][
+                    "stages"],
+                "prometheus_client": obs_metrics.HAVE_PROM,
+                "profiler": prof, "kernel_launches": launches}
+
+    async def lane() -> dict:
+        server = data_server.DataStreamingServer(
+            Settings(argv=[], env=SERVER_MESH_ENV), device=DEVICE)
+        m = wire(server)
+        me_mc_stripes.launches = 0
+        views = [_Viewer(server, f"d{k}")
+                 for k in range(SERVER_MESH_DISPLAYS)]
+        t0 = time.monotonic()
+        while not all(len(v.frames) >= TRACE_LANE_FRAMES for v in views) \
+                and time.monotonic() - t0 < TRACE_TIMEOUT_S:
+            await asyncio.sleep(0.005)
+            for v in views:
+                v.pump()
+        check(all(len(v.frames) >= TRACE_LANE_FRAMES for v in views),
+              "lane displays: " + str([len(v.frames) for v in views]))
+        await asyncio.sleep(0.1)
+        rec = server.recorder
+        out = {}
+        for v in views:
+            spans = [t for t in rec._completed()
+                     if t.terminal == "acked" and t.display == v.did]
+            spans = sorted(spans, key=lambda t: t.t0)[:TRACE_LANE_FRAMES]
+            check(len(spans) >= TRACE_LANE_FRAMES - 2,
+                  f"lane {v.did}: {len(spans)} acked spans")
+            _check_spans(f"lane {v.did}", spans, staged=False)
+            out[v.did] = {k: ({s: x["p50_ms"] for s, x in val.items()}
+                              if k == "stages" else val)
+                          for k, val in _span_stats(spans).items()}
+            out[v.did]["frames_per_s"] = v.fps()
+        coord = server.mesh_coordinators[(W, H, "x264enc-striped")]
+        check(coord.stats()["lanes"] == 1, "the displays left the lane")
+        for v in views:
+            await v.ws.close()
+            await asyncio.wait_for(v.task, 30.0)
+        await server.stop()
+        m.stop_http()
+        check(rec.open_spans() == 0,
+              f"lane: {rec.open_spans()} spans open after stop")
+        check(me_mc_stripes.launches > 0, "the lane launched no me_mc")
+        return {"displays": out, "terminals": terminals(rec),
+                "open_spans_after_stop": rec.open_spans(),
+                "kernel_launches": me_mc_stripes.launches}
+
+    async def x11() -> dict:
+        from selkies_tpu_torch.capture.x11 import X11Source
+
+        if not os.environ.get("DISPLAY") or not X11Source.available():
+            return {"x11_capture": "no X display"}
+        server = data_server.DataStreamingServer(
+            Settings(argv=[], env={"SELKIES_PORT": "0",
+                                   "SELKIES_ENCODER": "jpeg"}),
+            device=DEVICE)
+        ws = InProcessClient()
+        task = asyncio.create_task(server.ws_handler(ws))
+        ws.feed("SETTINGS," + json.dumps({
+            "displayId": "primary", "initialClientWidth": W,
+            "initialClientHeight": H, "framerate": 60}))
+        acked, seen, t0 = set(), 0, time.monotonic()
+        while len(acked) < 60 and time.monotonic() - t0 < TRACE_TIMEOUT_S:
+            await asyncio.sleep(0.005)
+            for msg in ws.sent[seen:]:
+                if isinstance(msg, (bytes, bytearray)):
+                    f = unpack_binary(bytes(msg))
+                    if f.frame_id not in acked:
+                        acked.add(f.frame_id)
+                        ws.feed(f"CLIENT_FRAME_ACK {f.frame_id}")
+            seen = len(ws.sent)
+        sup = server.display_clients["primary"].supervisor.stats()
+        await ws.close()
+        await asyncio.wait_for(task, 30.0)
+        await server.stop()
+        check(len(acked) >= 60 and sup["failures_total"] == 0,
+              f"x11 capture: {len(acked)} frames, {sup}")
+        return {"x11_capture": {"frames_acked": len(acked),
+                                "display": os.environ["DISPLAY"]}}
+
+    t_phase = time.perf_counter()
+    interval, data_server.STATS_INTERVAL_S = \
+        data_server.STATS_INTERVAL_S, TRACE_STATS_S
+    try:
+        profiles = {p: asyncio.run(solo(p))
+                    for p in ("jpeg", "x264enc-striped", "x264enc")}
+        lane_out = asyncio.run(lane())
+        x11_out = asyncio.run(x11())
+    finally:
+        data_server.STATS_INTERVAL_S = interval
+    launches = {f"trace:{p} (server)": r["kernel_launches"]
+                for p, r in profiles.items()}
+    launches["trace:mesh:x264enc-striped (server)"] = \
+        lane_out["kernel_launches"]
+    return {"phase": "server_trace", "gpu": CARD.get("name_power"),
+            "torch": torch.__version__, "width": W, "height": H,
+            "profiles": profiles, "lane": lane_out, **x11_out,
+            "seconds": time.perf_counter() - t_phase}, launches
+
+
 #: the served phases served_against runs in each tree
 SERVED_PROFILES = (("jpeg", 1), ("x264enc-striped", 1), ("x264enc", 1),
                    ("x264enc-striped", CHURN_BATCH))
@@ -3326,7 +3652,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--dct-planes-of"]:
         return dct_planes_of(sys.argv[2])
     if sys.argv[1:2] == ["--served-against"]:
-        return served_against(sys.argv[2])
+        return served_against(sys.argv[2], *map(int, sys.argv[3:4]))
     sys.path.insert(0, HERE)
     import selkies_tpu_torch  # noqa: F401  (absent beside a lone script)
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
@@ -3492,6 +3818,14 @@ def main() -> int:
     _settle("profile_fullframe")
     prof_full = phase_profile(_fullframe_pipeline, "me_mc_kernel",
                               "profile_fullframe")
+    # the flight recorder through each served path and a lane: counts
+    # from 0 just before each path, read just after. Last: its profiler
+    # request must not overlap the timing phases' profiler windows
+    _settle("server_trace")
+    server_trace, trace_launches = phase_server_trace()
+    for path, n in trace_launches.items():
+        (kern if path.startswith("trace:jpeg") else kern_me)[
+            "launches_by_path"][path] = n
 
     emit({"kernels": [kern, kern_me]})
     emit(enc)
@@ -3513,6 +3847,7 @@ def main() -> int:
     emit(prof)
     emit(prof_h264)
     emit(prof_full)
+    emit(server_trace)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start,
           "settled": SETTLED, "profiler": PROFILER})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,10 @@
 * a bounded submit queue gives backpressure (frames drop at the edge,
   counted, instead of stalling every display on the loop);
 * ``flush()`` drains deterministically; ``close()`` mid-flight neither
-  deadlocks nor leaks a staging slot.
+  deadlocks nor leaks a staging slot;
+* each harvested frame's stage intervals (flight recorder) are taken from
+  the pipe on the driver thread and kept under the driver seq
+  ``try_submit`` returned, for the capture loop's :meth:`pop_trace`.
 
 CUDA streams are per thread in PyTorch. The driver thread never issues
 device work of its own: every device call goes through the pipeline,
@@ -44,8 +47,9 @@ class AsyncEncodeDriver:
     after construction, so the pipe needs no locking of its own.
 
     Capture-loop surface: ``try_submit`` / ``poll`` / ``flush`` /
-    ``force_keyframe`` / ``close`` / ``stats`` / ``on_error`` — plus
-    ``wire_fullframe`` for the server's stripe packer.
+    ``force_keyframe`` / ``close`` / ``stats`` / ``pop_trace`` /
+    ``on_error`` / ``metrics`` — plus ``wire_fullframe`` for the server's
+    stripe packer.
     """
 
     #: seconds the driver thread sleeps between harvest polls when work
@@ -71,10 +75,16 @@ class AsyncEncodeDriver:
         self.on_error: Optional[Callable[[BaseException], None]] = None
         #: the server's FaultInjector (None: no fault points checked)
         self.faults = None
+        self._metrics = None
 
         self._cond = threading.Condition()
         self._in_q: deque = deque()          # (driver_seq, frame)
         self._out: deque = deque()           # (driver_seq, stripes)
+        #: driver seq -> stage intervals harvested with the frame (taken
+        #: from the pipe at emit time, under _cond, so the event loop's
+        #: pop never touches pipe state the driver thread mutates);
+        #: bounded like the pipe's own store
+        self._trace_out: dict = {}
         #: pipe seq -> driver seq, recorded per successful submit: a
         #: frame the pipe never accepted has no entry, so its loss can
         #: never shift later results onto wrong driver seqs
@@ -96,6 +106,17 @@ class AsyncEncodeDriver:
 
     # -- event-loop surface (never blocks) --------------------------------
 
+    @property
+    def metrics(self):
+        return self._metrics
+
+    @metrics.setter
+    def metrics(self, m) -> None:
+        # the server attaches its Metrics after construction; the pipe
+        # publishes the dispatch/fetch/D2H series, so it gets it too
+        self._metrics = m
+        self.pipe.metrics = m
+
     def try_submit(self, frame) -> Optional[int]:
         """Queue one frame for the driver thread; None = dropped (queue
         full — the pipeline is not keeping up, backpressure at the edge
@@ -111,6 +132,8 @@ class AsyncEncodeDriver:
                 return None
             if len(self._in_q) >= self.submit_depth:
                 self.frames_dropped_total += 1
+                if self._metrics is not None:
+                    self._metrics.inc_frames_dropped()
                 return None
             seq = self._seq
             self._seq += 1
@@ -193,6 +216,12 @@ class AsyncEncodeDriver:
         st["encode_errors"] = self.encode_errors_total
         return st
 
+    def pop_trace(self, seq: int):
+        """Stage intervals of a harvested frame, keyed by the driver seq
+        ``try_submit`` returned (once; None if unknown)."""
+        with self._cond:
+            return self._trace_out.pop(seq, None)
+
     # -- driver thread ------------------------------------------------------
 
     def _emit(self, results) -> None:
@@ -200,8 +229,13 @@ class AsyncEncodeDriver:
             return
         with self._cond:
             for pipe_seq, stripes in results:
-                self._out.append((self._seq_map.pop(pipe_seq, pipe_seq),
-                                  stripes))
+                seq = self._seq_map.pop(pipe_seq, pipe_seq)
+                tr = self.pipe.pop_trace(pipe_seq)
+                if tr:
+                    self._trace_out[seq] = tr
+                    while len(self._trace_out) > 4 * self.submit_depth:
+                        self._trace_out.pop(next(iter(self._trace_out)))
+                self._out.append((seq, stripes))
             # results arrive in pipe order: mappings below the newest
             # emitted pipe seq belong to frames the pipe lost to errors
             # and will never be yielded — drop them so the map stays
@@ -310,6 +344,8 @@ class AsyncEncodeDriver:
         """A device/entropy failure costs its frame; it is COUNTED and
         REPORTED to ``on_error``, whose owner decides what follows."""
         self.encode_errors_total += 1
+        if self._metrics is not None:
+            self._metrics.inc_encode_errors()
         logger.exception("async encode pass failed")
         if self.on_error is not None:
             try:

@@ -36,6 +36,32 @@ entry point the frame leaves its caller through (``submit``,
 ``try_submit``, ``submit_batch``; the async driver's and the adapter's
 ``try_submit``/``submit``); the paths behind them take the tensor as it
 is.
+
+Flight recorder: each frame's stage intervals (absolute
+``time.monotonic`` ``(start, end)`` pairs) ride its in-flight item and are
+stored under its seq when it is harvested; the capture loop takes them
+with :meth:`_Pipeline.pop_trace` and folds them into the frame's
+:class:`~..observability.tracing.FrameTrace`:
+
+* ``stage``: the host frame into the pinned staging ring and its upload
+  queued (absent for a frame already on the card);
+* ``dispatch``: the device step enqueued (host launch time, not device
+  compute); the frames of one batched step share its ``stage`` and
+  ``dispatch`` intervals;
+* ``fetch_wait``: from the first harvest attempt of the frame's fetch
+  group to the moment its bytes are on the host. The JAX pipeline blocks
+  in the host read and stamps that; here a harvest attempt polls the
+  copy's CUDA event without blocking, so the stamp opens at the first
+  poll that finds the group's copy issued and closes when the bytes are
+  host-side: the wait for the device step and the copy, as the
+  harvesting thread saw it, to within its poll period. A size-prediction
+  miss's second read extends it to that read's end;
+* ``pack``: host assembly of the stripes (the JPEG scans and headers, the
+  H.264 harvest); a JPEG frame that emits nothing has none.
+
+With ``metrics`` set (the server's :class:`~..observability.Metrics`)
+the pipeline also observes each dispatch and fetch wait, counts dropped
+frames and publishes the D2H-bytes, host-entropy and in-flight gauges.
 """
 
 from __future__ import annotations
@@ -44,7 +70,7 @@ import logging
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
@@ -77,6 +103,10 @@ class _FetchGroup:
     copy: HostCopy
     offsets: Tuple[Tuple[int, int], ...]
     host: Optional[np.ndarray] = None
+    #: first harvest attempt that found this group's copy issued, and the
+    #: members' shared fetch_wait interval once the bytes are host-side
+    t_first: Optional[float] = None
+    fetch_iv: Optional[Tuple[float, float]] = None
 
 
 class _Pipeline:
@@ -102,6 +132,11 @@ class _Pipeline:
         self._dispatch_ms: deque = deque(maxlen=256)
         self._fetch_wait_ms: deque = deque(maxlen=256)
         self.inflight_batches_max = 0
+        #: the server's Metrics (None: nothing published)
+        self.metrics = None
+        #: seq -> {stage: (t_start, t_end)} of harvested frames, pruned
+        #: oldest first, so a caller that never pops cannot grow it
+        self._trace_out: dict = {}
 
     # -- profile hooks -----------------------------------------------------
 
@@ -153,7 +188,7 @@ class _Pipeline:
         when the pipeline is full (frames held toward a batch count)."""
         self._advance_ready()
         if len(self._inflight) + self.n_held >= self.depth:
-            self.frames_dropped_total += 1
+            self._count_dropped(1)
             return None
         return self._submit(self.base.adopt(frame))
 
@@ -180,7 +215,9 @@ class _Pipeline:
 
     def _dispatch(self, frame) -> int:
         t0 = time.perf_counter()
+        ts0 = time.monotonic()
         staged, slot = self._stage(frame, self._staging)
+        td0 = time.monotonic()
         ticket = StagingTicket(self._staging, slot)
         try:
             item = self._start(staged, ticket)
@@ -188,12 +225,14 @@ class _Pipeline:
             # the slot must not leak busy (release is idempotent)
             ticket.release()
             raise
+        if not isinstance(frame, torch.Tensor):
+            item.trace["stage"] = (ts0, td0)
+        item.trace["dispatch"] = (td0, time.monotonic())
         self._seq += 1
         self._inflight.append(item)
         if len(self._unfetched) >= self.fetch_group:
             self._issue_fetch()
-        self._record_ms(self._dispatch_ms, t0)
-        self._note_inflight()
+        self._record_dispatch(t0)
         self._advance_ready()
         return item.seq
 
@@ -232,12 +271,16 @@ class _Pipeline:
             self._issue_fetch()   # flush the partial group
         g = item.group
         if g.host is None:
+            if g.t_first is None:
+                g.t_first = time.monotonic()
             if not block and not g.copy.ready():
                 return None
             t0 = time.perf_counter()
             g.host = g.copy.numpy()
-            self._record_ms(self._fetch_wait_ms, t0)
+            g.fetch_iv = (g.t_first, time.monotonic())
+            self._record_fetch_wait(t0)
             self.d2h_bytes_total += g.host.nbytes
+        item.trace["fetch_wait"] = g.fetch_iv
         start, n = g.offsets[item.group_index]
         return g.host[start:start + n]
 
@@ -257,6 +300,8 @@ class _Pipeline:
             # must free its staging slot, or the ring stalls
             self._release(item)
         self.frames_completed += 1
+        self._trace_store(item.seq, item.trace)
+        self._publish_metrics()
         return item.seq, out
 
     def _drain_one(self) -> Tuple[int, list]:
@@ -296,13 +341,49 @@ class _Pipeline:
         self._inflight.clear()
         self._unfetched.clear()
         self._ready.clear()
+        self._trace_out.clear()
         self._staging.release_all()
 
     # -- telemetry ---------------------------------------------------------
 
-    @staticmethod
-    def _record_ms(window: deque, t0: float) -> None:
-        window.append((time.perf_counter() - t0) * 1000.0)
+    def _trace_store(self, seq: int, intervals: dict) -> None:
+        if not intervals:
+            return
+        self._trace_out[seq] = intervals
+        while len(self._trace_out) > 4 * max(8, self.depth):
+            self._trace_out.pop(next(iter(self._trace_out)))
+
+    def pop_trace(self, seq: int):
+        """Stage intervals of a harvested frame (once; None if unknown)."""
+        return self._trace_out.pop(seq, None)
+
+    def _record_dispatch(self, t0: float) -> None:
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._dispatch_ms.append(ms)
+        self._note_inflight()
+        if self.metrics is not None:
+            self.metrics.observe_dispatch(ms)
+
+    def _record_fetch_wait(self, t0: float) -> None:
+        ms = (time.perf_counter() - t0) * 1000.0
+        self._fetch_wait_ms.append(ms)
+        if self.metrics is not None:
+            self.metrics.observe_fetch_wait(ms)
+
+    def _count_dropped(self, n: int) -> None:
+        if n <= 0:
+            return
+        self.frames_dropped_total += n
+        if self.metrics is not None:
+            self.metrics.inc_frames_dropped(n)
+
+    def _publish_metrics(self) -> None:
+        if self.metrics is not None and self.frames_completed:
+            st = self.stats()
+            self.metrics.set_d2h_bytes_per_frame(st["d2h_bytes_per_frame"])
+            self.metrics.set_host_entropy_ms_per_frame(
+                st["host_entropy_ms_per_frame"])
+            self.metrics.set_inflight_batches(st["inflight_batches"])
 
     def _note_inflight(self) -> None:
         self.inflight_batches_max = max(self.inflight_batches_max,
@@ -338,6 +419,8 @@ class _InFlight:
     meta: Tuple[Optional[np.ndarray], ...] = (None, None, None)
     words_np: Optional[np.ndarray] = None
     ticket: Optional[StagingTicket] = None
+    #: the frame's stage intervals for the flight recorder
+    trace: dict = field(default_factory=dict)
 
 
 class PipelinedJpegEncoder(_Pipeline):
@@ -440,7 +523,12 @@ class PipelinedJpegEncoder(_Pipeline):
         if item.refetch is not None and item.words_np is None:
             if not block and not item.refetch.ready():
                 return False
+            tm0 = time.monotonic()
             item.words_np = item.refetch.numpy()
+            # a prediction miss's second read extends the fetch wait
+            fw = item.trace.get("fetch_wait")
+            item.trace["fetch_wait"] = (fw[0] if fw else tm0,
+                                        time.monotonic())
             self.d2h_bytes_total += item.words_np.nbytes
         return True
 
@@ -450,12 +538,14 @@ class PipelinedJpegEncoder(_Pipeline):
         emit, is_paint = item.emit, item.is_paint
         if not emit.any() or item.words_np is None:
             return []
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         scans = b._scans_from_packed(
             item.words_np, base_np, nbytes_np, ovf_np,
             emit, item.yq, item.cbq, item.crq)
         out = b._assemble(emit, is_paint, scans)
-        self.host_entropy_ms_total += (time.perf_counter() - t0) * 1000.0
+        t1 = time.monotonic()
+        item.trace["pack"] = (t0, t1)
+        self.host_entropy_ms_total += (t1 - t0) * 1000.0
         return out
 
 
@@ -467,6 +557,8 @@ class _H264InFlight:
     group_index: int = 0
     host: Optional[np.ndarray] = None
     ticket: Optional[StagingTicket] = None
+    #: the frame's stage intervals for the flight recorder
+    trace: dict = field(default_factory=dict)
 
 
 class PipelinedH264Encoder(_Pipeline):
@@ -609,25 +701,30 @@ class PipelinedH264Encoder(_Pipeline):
                                 else b._upload(np.asarray(f, np.uint8))
                                 for f in frames])
 
-    def _count_dropped(self, n: int) -> None:
-        self.frames_dropped_total += max(0, n)
-
     def _dispatch_batch(self, rgbs) -> None:
         """One batched dispatch. The staged buffer backs every frame of
         the batch, so its ring slot frees when the last of them is
         harvested; the batch's heads are one fetch."""
         t0 = time.perf_counter()
+        ts0 = time.monotonic()
         staged, slot = self._stage(rgbs, self._staging_batch)
+        td0 = time.monotonic()
         try:
             pendings = self.base._dispatch_batch(staged, fetch=False)
         except Exception:
             self._staging_batch.release(slot)
             raise
+        td1 = time.monotonic()
         ticket = StagingTicket(self._staging_batch, slot,
                                refs=len(pendings))
         batched = []
         for p in pendings:
             item = self._item(p, ticket)
+            # one staged buffer and one step back the whole batch: every
+            # member frame was gated by the same intervals
+            if not isinstance(rgbs, torch.Tensor):
+                item.trace["stage"] = (ts0, td0)
+            item.trace["dispatch"] = (td0, td1)
             self._seq += 1
             self._inflight.append(item)
             if p.batch_heads is not None:
@@ -635,8 +732,7 @@ class PipelinedH264Encoder(_Pipeline):
         if batched:
             self._start_fetch(batched)       # the batch's heads: one read
         self._issue_fetch()
-        self._record_ms(self._dispatch_ms, t0)
-        self._note_inflight()
+        self._record_dispatch(t0)
 
     # -- profile hooks ---------------------------------------------------------
 
@@ -666,7 +762,10 @@ class PipelinedH264Encoder(_Pipeline):
         return item.host is not None
 
     def _finish(self, item: _H264InFlight) -> list:
-        return self.base.harvest(item.pending, host=item.host)
+        t0 = time.monotonic()
+        out = self.base.harvest(item.pending, host=item.host)
+        item.trace["pack"] = (t0, time.monotonic())
+        return out
 
     # -- queue -------------------------------------------------------------------
 
@@ -704,7 +803,8 @@ class ThreadedEncoderAdapter:
 
     Capture-loop surface: ``try_submit`` / ``poll`` / ``flush`` /
     ``force_keyframe`` / ``close`` / ``join`` / ``stats`` / ``pop_trace`` /
-    ``on_error``, plus ``wire_fullframe`` for the server's packer.
+    ``on_error`` / ``metrics``, plus ``wire_fullframe`` for the server's
+    packer.
     """
 
     def __init__(self, base, depth: int = 3,
@@ -717,6 +817,8 @@ class ThreadedEncoderAdapter:
         #: that polls or flushes); the server's capture loop counts it on
         #: the display's degradation ladder
         self.on_error = None
+        #: the server's Metrics (dropped frames, encode errors)
+        self.metrics = None
         self._cond = threading.Condition()
         self._in_q: deque = deque()        # (seq, frame) not yet started
         self._out: deque = deque()         # (seq, stripes | exc, interval)
@@ -766,6 +868,8 @@ class ThreadedEncoderAdapter:
                 return None
             if self._seq - self._finished >= self.depth:
                 self.frames_dropped_total += 1
+                if self.metrics is not None:
+                    self.metrics.inc_frames_dropped()
                 return None
         return self.submit(frame)
 
@@ -850,6 +954,8 @@ class ThreadedEncoderAdapter:
         for seq, res, iv in done:
             if isinstance(res, Exception):
                 self.encode_errors_total += 1
+                if self.metrics is not None:
+                    self.metrics.inc_encode_errors()
                 logger.error("encode of frame %d failed", seq, exc_info=res)
                 if self.on_error is not None:
                     try:

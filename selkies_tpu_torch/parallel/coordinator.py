@@ -178,8 +178,8 @@ class _Lane:
     bounded in-flight window, and its fault accounting."""
 
     __slots__ = ("id", "enc", "n_slots", "free", "sessions", "health",
-                 "slot_errors", "inflight_q", "error_streak", "skip_until",
-                 "idle_since")
+                 "slot_errors", "inflight_q", "dispatching", "error_streak",
+                 "skip_until", "idle_since")
 
     def __init__(self, lane_id: int, enc, n_slots: int,
                  health: SlotHealth) -> None:
@@ -194,6 +194,9 @@ class _Lane:
         self.slot_errors = [0] * n_slots
         #: (pending, [(session, slot, gen)], dispatch_interval)
         self.inflight_q: deque = deque()
+        #: [(session, slot, gen)] taken by the tick being dispatched, not
+        #: yet in inflight_q (they count toward a new submit's seq)
+        self.dispatching: list = []
         #: consecutive failed ticks of THIS lane; drives the per-lane
         #: capped backoff so a sick lane never slows its neighbours
         self.error_streak = 0
@@ -662,9 +665,10 @@ class MeshEncodeCoordinator:
             # window come first — without the offset, overlapped steady
             # state would hand the in-flight frame's seq to every new
             # submit (trace correlation off by one)
-            inflight = sum(
-                1 for entry in sess.lane.inflight_q
-                for s, _slot, g in entry[1] if s is sess and g == sess.gen)
+            lane = sess.lane
+            took = [t for entry in lane.inflight_q for t in entry[1]]
+            inflight = sum(1 for s, _slot, g in took + lane.dispatching
+                           if s is sess and g == sess.gen)
             seq = sess.seq + inflight
         self._kick.set()
         return None if dropped else seq
@@ -939,6 +943,7 @@ class MeshEncodeCoordinator:
                     sess.inflight += 1
                     took.append((sess, slot, sess.gen))
                 if took or lane.inflight_q:
+                    lane.dispatching = took
                     plans.append((lane, frames, took))
         for lane, frames, took in plans:
             self._tick_lane(lane, frames, took)
@@ -958,6 +963,7 @@ class MeshEncodeCoordinator:
                 with self._lock:
                     lane.inflight_q.append(
                         (pending, took, (t_disp0, time.monotonic())))
+                    lane.dispatching = []
                     depth = sum(len(ln.inflight_q) for ln in self.lanes)
                     self.inflight_batches_max = max(
                         self.inflight_batches_max, depth)
@@ -967,6 +973,7 @@ class MeshEncodeCoordinator:
                 # not strand the inflight holds (facade.flush would block
                 # on them for its full timeout)
                 with self._lock:
+                    lane.dispatching = []
                     for sess, _slot, _gen in took:
                         sess.inflight = max(0, sess.inflight - 1)
                 dispatched = True
@@ -980,6 +987,7 @@ class MeshEncodeCoordinator:
             # lane-contained failure: charge the batch that was lost, arm
             # this lane's own backoff, and keep every other lane ticking
             with self._lock:
+                lane.dispatching = []
                 if took and not dispatched:
                     self._unwind_took_locked(lane, took)
                 lane.error_streak += 1

@@ -20,8 +20,9 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What the port serves:
 * client binary messages: 0x01 file chunks into the open upload (paced
   through the upload bucket, capped by ``max_upload_mb``; ``FILE_UPLOAD_*``
   with path sanitizing under ``SELKIES_UPLOAD_DIR``), 0x02 microphone
-  chunks (capped by ``max_mic_chunk_kb`` and rate-limited, then dropped:
-  there is no audio pipeline yet), anything else rejected;
+  chunks (capped by ``max_mic_chunk_kb`` and rate-limited, then handed
+  to the audio pipeline's ``on_mic_data`` when one is wired), anything
+  else rejected;
 * resize and reconfigure: ``r,<W>x<H>`` from a display's owner and every
   ``SETTINGS`` schedule one debounced reconfiguration
   (``resize_debounce_ms``; a storm coalesces), which lays the displays out
@@ -35,20 +36,29 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What the port serves:
   (``SELKIES_TPU_FAULTS``) are checked at the JAX server's call sites;
 * ``CLIENT_FRAME_ACK`` and ``_f`` into the display's
   :class:`~.backpressure.BackpressureState`; ``START_VIDEO``/
-  ``STOP_VIDEO``; ``START_AUDIO``/``STOP_AUDIO``; ``cmd`` when
+  ``STOP_VIDEO``; ``START_AUDIO``/``STOP_AUDIO`` start and stop the audio
+  pipeline (``audio_pipeline``, wired by ``main``; it also starts with
+  the first client and stops with the last); ``cmd`` when
   ``command_enabled``; ``SET_NATIVE_CURSOR_RENDERING``; other verbs go to
   ``input_handler`` when one is set;
+* the flight recorder (``recorder``, observability/tracing.py): every
+  captured frame opens a span, the encoder's stage intervals are folded
+  in at harvest (``pop_trace``), the frame's last stripe rides the
+  owner's send queue traced (``queue``/``send``), and CLIENT_FRAME_ACK
+  closes it (``ack``); every other end is a terminal ``empty``,
+  ``dropped@<stage>`` or ``expired@<stage>`` mark, so no span stays open.
+  ``metrics`` (wired by ``main``) gets the JAX server's series;
 * multi-session lanes (``tpu_mesh``): a display of the ``jpeg`` or
   ``x264enc-striped`` profile at its ``device`` rung rides a slot of a lane
   of its (geometry, profile) bucket; a new display is admitted, queued or
   shed by the lanes' live capacity and the load-shedding verdict;
 * the stats feed every ``STATS_INTERVAL_S``: ``system_stats``,
   ``network_stats`` (bytes sent, lane counters, the edge block),
-  ``system_health`` and ``gpu_stats`` (the card's memory).
+  ``system_health`` (with each display's stage breakdown) and
+  ``gpu_stats`` (the card's memory).
 
-Metrics, the flight recorder, input, audio and X11 capture are not ported
-yet (``self.metrics`` stays None; every call site is guarded). An unknown
-encoder profile raises.
+Capture is X11 (XShm or ``XGetImage``) where an X display is reachable,
+else the synthetic desktop. An unknown encoder profile raises.
 
 Concurrency model (same invariant as the JAX server): one asyncio loop
 owns all mutable state — the ladder included: errors that the encoder's
@@ -71,6 +81,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Set, Tuple
 
+from ..observability.tracing import FlightRecorder
 from ..protocol.wire import (
     FrameId,
     ProtocolError,
@@ -128,6 +139,23 @@ def _ws_broadcast(targets, message) -> None:
         websockets.broadcast(real, message)
 
 
+class _TracedChunk:
+    """A media chunk carrying its frame's flight-recorder trace through the
+    owner's send queue: only the LAST stripe of a frame rides traced (the
+    frame is decodable when that stripe lands), so queue/send/ack measure
+    the whole frame once."""
+
+    __slots__ = ("payload", "trace", "t_offer")
+
+    def __init__(self, payload, trace, t_offer: float) -> None:
+        self.payload = payload
+        self.trace = trace
+        self.t_offer = t_offer
+
+    def __len__(self) -> int:       # byte accounting as for bytes
+        return len(self.payload)
+
+
 class _ClientSendQueue:
     """Asyncio drainer around a :class:`BoundedSendQueue` for one client.
 
@@ -135,15 +163,29 @@ class _ClientSendQueue:
     blocks the capture loop); this drainer task awaits the transport's
     real ``send``, so per-client flow control backs up into the queue —
     where drop-oldest video and the eviction verdict live — instead of
-    into the shared event loop."""
+    into the shared event loop.
 
-    def __init__(self, ws, q: BoundedSendQueue, on_evict) -> None:
+    Flight-recorder duty: a :class:`_TracedChunk` passing through closes
+    its frame's ``queue`` and ``send`` stages and registers the span for
+    ACK correlation; every way a traced chunk can die (drop-oldest
+    overflow, a raising send, teardown mid-send) lands a terminal
+    ``dropped@`` mark instead of leaking the span."""
+
+    def __init__(self, ws, q: BoundedSendQueue, on_evict,
+                 recorder: Optional[FlightRecorder] = None) -> None:
         self.ws = ws
         self.q = q
         self.evicted = False
         self._on_evict = on_evict
+        self._recorder = recorder
+        # drop-oldest may discard a traced chunk: its span must close
+        q.on_drop = self._on_video_dropped
         self._wake = asyncio.Event()
         self.task = asyncio.create_task(self._drain())
+
+    def _on_video_dropped(self, message) -> None:
+        if isinstance(message, _TracedChunk) and self._recorder is not None:
+            self._recorder.drop(message.trace, "queue")
 
     def offer(self, message, control: bool) -> None:
         self.q.offer(message, control=control)
@@ -151,6 +193,35 @@ class _ClientSendQueue:
         if not self.evicted and self.q.should_evict:
             self.evicted = True
             self._on_evict(self)
+
+    def offer_traced(self, payload, trace) -> None:
+        """Queue the frame's last stripe with its trace attached (the queue
+        stage opens now; the drainer closes it when it pops the chunk)."""
+        self.offer(_TracedChunk(payload, trace, time.monotonic()),
+                   control=False)
+
+    async def _send_one(self, message) -> None:
+        if not isinstance(message, _TracedChunk):
+            await self.ws.send(message)
+            return
+        tr = message.trace
+        now = time.monotonic()
+        tr.mark("queue", message.t_offer, now)
+        # registered for ACK correlation BEFORE the await: under write
+        # backpressure the payload can reach the client, and its ACK the
+        # reader task, while this coroutine is still suspended in send
+        if self._recorder is not None:
+            self._recorder.sent(tr)
+        try:
+            await self.ws.send(message.payload)
+        except BaseException:
+            # transport death or cancellation mid-send: terminal mark,
+            # then the existing error handling decides the session
+            if self._recorder is not None and tr.terminal is None:
+                self._recorder.drop(tr, "send")
+            raise
+        if tr.terminal is None:
+            tr.mark("send", now, time.monotonic())
 
     async def _drain(self) -> None:
         try:
@@ -161,7 +232,7 @@ class _ClientSendQueue:
                     message = self.q.pop()
                     if message is None:
                         break
-                    await self.ws.send(message)
+                    await self._send_one(message)
         except asyncio.CancelledError:
             raise
         except Exception:
@@ -172,6 +243,12 @@ class _ClientSendQueue:
     def close(self) -> None:
         if not self.task.done():
             self.task.cancel()
+        # traced chunks still queued will never be sent
+        while True:
+            message = self.q.pop()
+            if message is None:
+                break
+            self._on_video_dropped(message)
 
 
 def upload_dir() -> str:
@@ -269,11 +346,15 @@ def rung_overrides(overrides: Dict[str, Any], rung: str) -> Dict[str, Any]:
     return ov
 
 
-def default_source_factory(width: int, height: int, fps: float):
-    """Synthetic desktop capture (X11 capture is not ported yet, so a
-    display's layout offset ``x, y`` has no source to reach)."""
+def default_source_factory(width: int, height: int, fps: float,
+                           x: int = 0, y: int = 0):
+    """X11 capture of the display's region (its layout offset ``x, y``)
+    where an X display is reachable, else the synthetic desktop."""
     from ..capture.synthetic import SyntheticSource
+    from ..capture.x11 import X11Source
 
+    if X11Source.available():
+        return X11Source(width, height, fps, x=x, y=y)
     return SyntheticSource(width, height, fps, pattern="desktop")
 
 
@@ -379,11 +460,16 @@ class DataStreamingServer:
         self._stats_task: Optional[asyncio.Task] = None
         self._stop_event: Optional[asyncio.Event] = None
         self.bytes_sent = 0
-        #: the Prometheus plane is not ported yet: every call site is
-        #: guarded, so wiring one later touches none of them
+        #: observability.Metrics, wired by main() (every call site guarded)
         self.metrics = None
-        #: cleared by STOP_AUDIO until re-requested (no audio pipeline yet)
+        #: audio.AudioPipeline, wired by main() when audio is enabled
+        self.audio_pipeline = None
+        #: cleared by STOP_AUDIO until re-requested
         self._audio_wanted = True
+        #: frame flight recorder (observability/tracing.py): every served
+        #: frame's stage spans, read by the metrics endpoint
+        #: (/debug/trace), the system_health feed and the stats loop
+        self.recorder = FlightRecorder(capacity=4096)
         #: last xrandr-applied Layout (dedup)
         self._last_layout = None
         #: closed encoders whose threads may still run; pruned at every
@@ -570,6 +656,9 @@ class DataStreamingServer:
         for coord in self.mesh_coordinators.values():
             coord.stop()
         self.mesh_coordinators.clear()
+        if self.audio_pipeline is not None:
+            await self.audio_pipeline.stop()
+            self.audio_pipeline.close()
         if self._stats_task:
             self._stats_task.cancel()
         if self._stop_event:
@@ -696,6 +785,9 @@ class DataStreamingServer:
             # static content, so the next frame refreshes every stripe
             primary.encoder.force_keyframe()
         try:
+            if (self.audio_pipeline is not None and self._audio_wanted
+                    and not self.audio_pipeline.running):
+                await self.audio_pipeline.start()
             await websocket.send("MODE websockets")
             if self.app and self.app.last_cursor_sent:
                 await websocket.send(
@@ -709,7 +801,8 @@ class DataStreamingServer:
                     max_video=int(self.settings.max_send_queue),
                     evict_after_s=float(int(
                         self.settings.slow_client_evict_s))),
-                on_evict=self._evict_slow_client)
+                on_evict=self._evict_slow_client,
+                recorder=self.recorder)
             if self._stats_task is None or self._stats_task.done():
                 self._stats_task = asyncio.create_task(self._stats_loop())
             async for message in websocket:
@@ -776,6 +869,9 @@ class DataStreamingServer:
             if dropped and self.display_clients:
                 # surviving displays reflow into a smaller framebuffer
                 self._schedule_reconfigure()
+            if (not self.clients and self.audio_pipeline is not None
+                    and self.audio_pipeline.running):
+                await self.audio_pipeline.stop()
 
     # ------------------------------------------------------------------
     # text protocol
@@ -822,9 +918,14 @@ class DataStreamingServer:
             st = self._display_of(websocket)
             if st and st.ws is websocket and msg.args:
                 try:
-                    st.bp.on_client_ack(int(msg.args[0]))
+                    fid = int(msg.args[0])
                 except ValueError:
                     pass
+                else:
+                    st.bp.on_client_ack(fid)
+                    # the ACK closes the frame's span with the true
+                    # network round trip (send end -> ack arrival)
+                    self.recorder.ack(st.display_id, fid)
         elif verb == "r" and len(msg.args) >= 1:
             await self._on_resize(websocket, msg.args)
         elif verb == "START_VIDEO":
@@ -842,9 +943,15 @@ class DataStreamingServer:
                 await self._stop_display(st)
                 self._fanout({websocket}, "VIDEO_STOPPED")
         elif verb == "START_AUDIO":
-            self._audio_wanted = True       # no audio pipeline to start yet
+            self._audio_wanted = True
+            if self.audio_pipeline is not None:
+                await self.audio_pipeline.start()
+                self.broadcast("AUDIO_STARTED")
         elif verb == "STOP_AUDIO":
             self._audio_wanted = False
+            if self.audio_pipeline is not None:
+                await self.audio_pipeline.stop()
+                self.broadcast("AUDIO_STOPPED")
         elif verb == "FILE_UPLOAD_START":
             await self._on_upload_start(websocket, msg.args)
         elif verb == "FILE_UPLOAD_END":
@@ -954,7 +1061,8 @@ class DataStreamingServer:
             if guard is not None and not guard.allow("mic", len(data)):
                 self._count_rate_limited("mic")
                 return
-            # an admitted chunk ends here: there is no audio pipeline yet
+            if self.audio_pipeline is not None:
+                await self.audio_pipeline.on_mic_data(data[1:])
         else:
             # the canonical demux raises the precise rejection (wrong
             # direction 0x00/0x03/0x04 vs unknown)
@@ -1270,6 +1378,8 @@ class DataStreamingServer:
         st.bp_supervisor = None
         st.running_geom = None
         st.running_config = None
+        # a stopped display's un-ACKed frames will never resolve
+        self.recorder.drop_awaiting(st.display_id, "stop")
         encoder, st.encoder = st.encoder, None
         if encoder is not None:
             self._retire(encoder)
@@ -1286,6 +1396,9 @@ class DataStreamingServer:
 
     async def _reset_frame_ids_and_notify(self, st: DisplayState) -> None:
         st.bp.reset()
+        # ids restart at 1: frames sent under the old numbering will never
+        # be ACKed, so their spans close here
+        self.recorder.drop_awaiting(st.display_id, "reset")
         message = f"PIPELINE_RESETTING {st.display_id}"
         if st.display_id == "primary":
             self.broadcast(message)
@@ -1338,11 +1451,22 @@ class DataStreamingServer:
         if getattr(encoder, "faults", False) is None:
             # the async driver checks fetch.hang at its own harvest site
             encoder.faults = faults
+        if getattr(encoder, "metrics", False) is None:
+            encoder.metrics = self.metrics
         st.encoder = encoder
         source = None
+        recorder = self.recorder
+        #: flight-recorder spans of frames submitted but not yet harvested,
+        #: by the seq try_submit returned (every encoder here returns one
+        #: for an accepted frame); results come in submission order
+        pending_tr: Dict[int, Any] = {}
         try:
             sup.beat()   # encoder construction counts as progress
-            source = self.source_factory(st.width, st.height, fps)
+            try:
+                source = self.source_factory(st.width, st.height, fps,
+                                             x=st.x, y=st.y)
+            except TypeError:   # a factory without offsets (tests)
+                source = self.source_factory(st.width, st.height, fps)
             source.start()
             frame_id = 0
             interval = 1.0 / fps
@@ -1363,6 +1487,7 @@ class DataStreamingServer:
             logger.info("capture loop started for %s (%dx%d@%g, rung=%s)",
                         st.display_id, st.width, st.height, fps, rung)
             consume_migration = getattr(encoder, "consume_migration", None)
+            pop_trace = getattr(encoder, "pop_trace", None)
             while True:
                 sup.beat()
                 faults.maybe_raise("capture.raise")
@@ -1387,15 +1512,39 @@ class DataStreamingServer:
                 progressed = False
                 accepted = True     # "no submit attempted" is not a wedge
                 if st.bp.send_enabled:
+                    t_cap0 = time.monotonic()
                     frame = source.next_frame()
+                    t_cap1 = time.monotonic()
                     if frame is not None:
+                        # open this frame's span: (display, frame) context
+                        # threaded capture -> ... -> client ACK
+                        tr = recorder.begin(st.display_id, t=t_cap0)
+                        tr.mark("capture", t_cap0, t_cap1)
                         try:
                             faults.maybe_raise("encode.raise")
                             # None = dropped (pipeline full)
-                            accepted = encoder.try_submit(frame) is not None
+                            seq = encoder.try_submit(frame)
                         except Exception as e:
+                            recorder.drop(tr, "submit")
                             raise EncoderFault(
                                 f"encoder submit failed: {e!r}") from e
+                        accepted = seq is not None
+                        if not accepted:
+                            # backpressure at the edge: a dropped frame
+                            # closes terminally, it never leaks a span
+                            recorder.drop(tr, "submit")
+                        else:
+                            # a reused seq (a lane facade numbers at
+                            # harvest): the superseded frame's span closes
+                            old = pending_tr.get(seq)
+                            if old is not None:
+                                recorder.drop(old, "submit")
+                            pending_tr[seq] = tr
+                            # a pipeline accepting submits but never
+                            # harvesting must not grow this map
+                            while len(pending_tr) > 512:
+                                recorder.drop(pending_tr.pop(
+                                    next(iter(pending_tr))), "submit")
                         progressed = True
                 await faults.maybe_hang("fetch.hang")
                 try:
@@ -1410,11 +1559,31 @@ class DataStreamingServer:
                     errors.popleft()
                     st.ladder.record_failure()
                 for _seq, stripes in harvested:
+                    # results come in submission order: a span older than
+                    # this one was lost inside the encoder (its error was
+                    # counted above)
+                    while pending_tr and next(iter(pending_tr)) < _seq:
+                        recorder.drop(pending_tr.pop(next(iter(pending_tr))),
+                                      "encode")
+                    tr = pending_tr.pop(_seq, None)
+                    if tr is not None and pop_trace is not None:
+                        # the encoder-side intervals harvested with the
+                        # frame (stage/dispatch/fetch_wait/pack)
+                        tr.merge(pop_trace(_seq))
                     if not stripes:
-                        continue        # damage gating emitted nothing
+                        # damage gating emitted nothing: a coalesced
+                        # frame, closed (not dropped, not acked)
+                        if tr is not None:
+                            recorder.finish_empty(tr)
+                        continue
                     progressed = accepted = True
                     frame_id = FrameId.next(frame_id)
-                    self._emit_frame(st, frame_id, stripes, encoder)
+                    try:
+                        self._emit_frame(st, frame_id, stripes, encoder, tr)
+                    except BaseException:
+                        if tr is not None and tr.terminal is None:
+                            recorder.drop(tr, "send")
+                        raise
                     st.bp.on_frame_sent(frame_id)
                     st.frames_sent += 1
                 now = time.monotonic()
@@ -1462,6 +1631,12 @@ class DataStreamingServer:
                 except Exception:
                     logger.exception("source stop for %s raised",
                                      st.display_id)
+            # frames in flight inside the encoder being closed are
+            # abandoned with it: a supervised restart, a rung change, a
+            # migration's rebuild or a stop never leaks their spans
+            for tr in pending_tr.values():
+                recorder.drop(tr, "restart")
+            pending_tr.clear()
             st.encoder = None
             self._retire(encoder)
 
@@ -1541,16 +1716,52 @@ class DataStreamingServer:
         return facade
 
     def _emit_frame(self, st: DisplayState, frame_id: int, stripes,
-                    encoder) -> None:
+                    encoder, tr=None) -> None:
         """Wire-pack one harvested frame and fan it out to the display's
-        viewers through their send queues."""
+        viewers through their send queues.
+
+        Flight recorder: the LAST stripe of a traced frame rides the
+        owner's send queue with the trace attached (the frame is decodable
+        when that stripe lands), closing queue/send there and registering
+        the span for CLIENT_FRAME_ACK; every path with no delivery to the
+        owner (no viewers, evicted owner, ownerless display) closes the
+        span terminally instead."""
+        recorder = self.recorder
         viewers = self._viewers_of(st.display_id)
-        if not viewers:
-            return
-        for s in stripes:
+        owner = st.ws
+        owner_cq = self._send_queues.get(owner) if owner is not None else None
+        if tr is not None:
+            tr.frame_id = frame_id
+        n = len(stripes)
+        for i, s in enumerate(stripes):
+            if not viewers:
+                break
             chunk = _pack_stripe(frame_id, s, encoder)
-            self._fanout(viewers, chunk)
+            if tr is not None and i == n - 1 and owner in viewers:
+                others = viewers - {owner}
+                if others:
+                    self._fanout(others, chunk)
+                if owner_cq is not None and not owner_cq.evicted:
+                    owner_cq.offer_traced(chunk, tr)
+                elif owner_cq is not None:
+                    # evicted mid-kill: the frame never reaches the owner
+                    recorder.drop(tr, "queue")
+                else:
+                    # no send queue (a client registered outside
+                    # ws_handler): direct fan-out, zero queue dwell
+                    t0 = time.monotonic()
+                    _ws_broadcast({owner}, chunk)
+                    t1 = time.monotonic()
+                    tr.mark("queue", t0, t0)
+                    tr.mark("send", t0, t1)
+                    recorder.sent(tr)
+            else:
+                self._fanout(viewers, chunk)
             self.bytes_sent += len(chunk) * len(viewers)
+        if tr is not None and tr.terminal is None and not (
+                viewers and owner is not None and owner in viewers):
+            # encoded, but nobody to ACK it: close rather than wait
+            recorder.drop(tr, "send")
 
     async def _backpressure_loop(self, st: DisplayState) -> None:
         sup = st.bp_supervisor
@@ -1602,6 +1813,11 @@ class DataStreamingServer:
                         "display %s wedged %d times at the bottom rung; "
                         "marking failed", st.display_id, st.wedge_faults)
                     kind = "failed"
+        if self.metrics is not None:
+            if kind == "restart":
+                self.metrics.inc_supervisor_restart()
+            elif kind == "watchdog":
+                self.metrics.inc_watchdog_restart()
         if kind == "failed":
             # a failed capture pipeline must not leave its sibling
             # backpressure loop ticking; tear the display down from
@@ -1627,9 +1843,10 @@ class DataStreamingServer:
 
     def _health_payload(self) -> str:
         """The ``system,health`` wire message: per-display supervision,
-        watchdog and degradation-ladder state, and the lane scheduler's
-        slot health per bucket (``mesh``) — the JAX server's keys, less
-        the flight recorder's ``stages``, not ported yet."""
+        watchdog and degradation-ladder state with the flight recorder's
+        stage breakdown over the last minute (``stages``, and the
+        glass-to-glass and encode-only p50s), and the lane scheduler's
+        slot health per bucket (``mesh``) — the JAX server's keys."""
         displays: Dict[str, Any] = {}
         for did, st in self.display_clients.items():
             sup = st.supervisor.stats() if st.supervisor is not None else {}
@@ -1648,6 +1865,15 @@ class DataStreamingServer:
                 est = enc.stats()
                 d["frames_dropped"] = est.get("frames_dropped", 0)
                 d["encode_errors"] = est.get("encode_errors", 0)
+            # where each frame's time went, for the client's overlay
+            summ = self.recorder.summary(did, last_s=60.0)
+            if summ.get("stages"):
+                d["stages"] = {
+                    stage: {"p50_ms": v["p50_ms"], "p95_ms": v["p95_ms"]}
+                    for stage, v in summ["stages"].items()}
+                for k in ("glass_to_glass_p50_ms", "encode_only_p50_ms"):
+                    if k in summ:
+                        d[k] = summ[k]
             displays[did] = d
         # slot health per bucket: a quarantined slot or a live migration
         # must reach the client overlay, not only the scheduler's stats()
@@ -1676,8 +1902,18 @@ class DataStreamingServer:
             }
         return pack_system_health(displays, mesh=mesh or None)
 
+    def _publish_health_metrics(self) -> None:
+        """Recompute the health gauges from current state: recovery and
+        display removal must clear them, not only events raise them."""
+        if self.metrics is None:
+            return
+        levels = [d.ladder.level for d in self.display_clients.values()]
+        self.metrics.set_degradation_rung(max(levels) if levels else 0)
+        self.metrics.set_failed_displays(self._failed_displays())
+
     def _broadcast_health(self) -> None:
         try:
+            self._publish_health_metrics()
             self.broadcast(self._health_payload())
         except Exception:
             logger.exception("health broadcast failed")
@@ -1806,6 +2042,21 @@ class DataStreamingServer:
             await asyncio.sleep(STATS_INTERVAL_S)
             try:
                 self._update_load_shed()
+                # flight-recorder upkeep: late metrics attachment and the
+                # expiry sweep (a client that never ACKs must not pin
+                # open spans)
+                self.recorder.metrics = self.metrics
+                self.recorder.expire()
+                if self.metrics is not None:
+                    self.metrics.set_trace_open_spans(
+                        self.recorder.open_spans())
+                    self.metrics.set_backpressured(sum(
+                        1 for d in self.display_clients.values()
+                        if not d.bp.send_enabled))
+                    self.metrics.set_send_queue_depth(max(
+                        (len(cq.q) for cq in self._send_queues.values()),
+                        default=0))
+                    self._publish_health_metrics()
                 await self._retire_idle_buckets()
                 self.broadcast(json.dumps(self._collect_system_stats()))
                 net = {
@@ -1837,6 +2088,22 @@ class DataStreamingServer:
                             sched["quarantined_slots"]
                     net["mesh_migrations_total"] = sum(
                         c.migrations_total for c in coords)
+                    if self.metrics is not None:
+                        coord_stats = [c.stats() for c in coords]
+                        self.metrics.set_mesh_health(
+                            active_sessions=net["mesh_sessions"],
+                            lanes=net.get("mesh_lanes", 0),
+                            inflight=sum(cs.get("inflight_batches", 0)
+                                         for cs in coord_stats),
+                            slot_errors=sum(sum(cs.get("slot_errors", []))
+                                            for cs in coord_stats),
+                            tick_errors=net["mesh_tick_errors"],
+                            worker_restarts=net["mesh_worker_restarts"],
+                            quarantined=net.get("mesh_quarantined_slots", 0),
+                            migrations=net["mesh_migrations_total"])
+                        # a lane spans one card (no split-frame encoding)
+                        self.metrics.set_sfe_health(shards=0,
+                                                    concat_ms_p50=0.0)
                 edge = self.edge_stats
                 if (edge["protocol_errors"] or edge["rate_limited"]
                         or edge["sessions_rejected"]

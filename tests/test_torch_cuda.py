@@ -763,3 +763,107 @@ def test_lane_takes_frames_made_on_the_card(cuda_device):
                                  for f in frames])
         assert _lane_bytes(oa) == _lane_bytes(ob), k
     assert a.h2d_bytes_total == 0 and b.h2d_bytes_total > 0
+
+
+def _served_spans(device, profile, frames=30, w=640, h=360):
+    """One display of ``profile`` served on ``device`` through ws_handler,
+    every frame ACKed until ``frames`` are; returns the recorder after
+    the server stopped."""
+    import asyncio
+    import json
+    import time
+
+    from selkies_tpu_torch.protocol.wire import unpack_binary
+    from selkies_tpu_torch.robustness import InProcessClient
+    from selkies_tpu_torch.server.data_server import DataStreamingServer
+    from selkies_tpu_torch.settings import Settings
+
+    async def run():
+        server = DataStreamingServer(
+            Settings(argv=[], env={"SELKIES_PORT": "0",
+                                   "SELKIES_ENCODER": profile}),
+            device=device)
+        ws = InProcessClient()
+        task = asyncio.create_task(server.ws_handler(ws))
+        ws.feed("SETTINGS," + json.dumps({
+            "displayId": "primary", "initialClientWidth": w,
+            "initialClientHeight": h, "framerate": 60}))
+        acked, seen = set(), 0
+        deadline = time.monotonic() + 120.0
+        while len(acked) < frames:
+            assert time.monotonic() < deadline, len(acked)
+            await asyncio.sleep(0.002)
+            for m in ws.sent[seen:]:
+                if isinstance(m, (bytes, bytearray)):
+                    fid = unpack_binary(bytes(m)).frame_id
+                    if fid not in acked:
+                        acked.add(fid)
+                        ws.feed(f"CLIENT_FRAME_ACK {fid}")
+            seen = len(ws.sent)
+        await asyncio.sleep(0.1)
+        await ws.close()
+        await asyncio.wait_for(task, 30.0)
+        await server.stop()
+        return server.recorder
+
+    return asyncio.run(run())
+
+
+@pytest.mark.parametrize("profile", ["jpeg", "x264enc-striped"])
+def test_served_display_on_card_closes_every_span_acked(cuda_device,
+                                                        profile):
+    """A served display on the card: every span closes (none open after
+    stop), the ACKed ones carry every stage of the solo path, and the
+    device wait shows in ``fetch_wait`` (> 0 on at least one frame)."""
+    rec = _served_spans(cuda_device, profile)
+    assert rec.open_spans() == 0
+    acked = [t for t in rec._completed() if t.terminal == "acked"]
+    assert len(acked) >= 30
+    for t in acked:
+        assert {"capture", "stage", "dispatch", "fetch_wait", "pack",
+                "queue", "send", "ack"} <= set(t.spans), sorted(t.spans)
+    assert any(t.duration_ms("fetch_wait") > 0 for t in acked)
+
+
+def test_profiler_route_capture_holds_a_kernel_event(cuda_device):
+    """The trace route's torch.profiler capture, requested over HTTP (the
+    endpoint's own thread starts it), records the card: a kernel launched
+    while it runs is a device event of the trace it writes."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from selkies_tpu_torch.observability import Metrics
+
+    plane = torch.rand(1088, 1920, device=cuda_device) * 255
+    recip = torch.from_numpy(_recips()).to(cuda_device)
+    row = torch.zeros(1088 // 8, dtype=torch.int32, device=cuda_device)
+    m = Metrics(port=0)
+    m.jax_trace_enabled = True
+    assert m.start_http()
+    stop = threading.Event()
+
+    def launch():
+        while not stop.is_set():
+            dct8_quant_zigzag([(plane, recip, row)])
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+
+    th = threading.Thread(target=launch)
+    th.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{m.http_port}/debug/jax-trace?ms=300",
+                timeout=60) as r:
+            info = json.loads(r.read())
+    finally:
+        stop.set()
+        th.join()
+        m.stop_http()
+    assert info["cuda"] and info["device_events"] > 0
+    with open(info["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("cat") == "kernel"
+               and "dct8_quant_zigzag_kernel" in e.get("name", "")
+               for e in events)

@@ -66,6 +66,17 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.robustness.ratelimit\n"
         "import selkies_tpu_torch.display\n"
         "import selkies_tpu_torch.server.app\n"
+        "import selkies_tpu_torch.observability\n"
+        "import selkies_tpu_torch.observability.tracing\n"
+        "import selkies_tpu_torch.capture.x11\n"
+        "import selkies_tpu_torch.input\n"
+        "import selkies_tpu_torch.input.cursor\n"
+        "import selkies_tpu_torch.audio\n"
+        "import selkies_tpu_torch.rtc\n"
+        "from selkies_tpu_torch.server import bundled_web_root\n"
+        "assert bundled_web_root() is not None\n"
+        "from selkies_tpu_torch.audio import opus_available\n"
+        "opus_available()\n"
         "from selkies_tpu_torch.parallel import MeshStripeEncoder, parse_mesh_spec\n"
         "from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder\n"
         "from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder\n"
