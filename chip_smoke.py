@@ -94,8 +94,19 @@ order, no span open after the display stops, ``/healthz``,
 request on the trace route whose trace holds the path's kernel. It runs
 last: its profiler must not overlap the timing phases' windows.
 
-It prints one JSON object per line (setup, server_resize, server_edge as
-they end, then kernels, encoder, h264_encoder,
+The WebRTC mode: ``webrtc`` streams the port's WebRTCStreamingApp at
+1920x1080 and 60 fps (one H.264 stripe over the frame, pipelined) to a
+browser stand-in PeerConnection on 127.0.0.1 over ICE and DTLS-SRTP
+(without ``cryptography``, through the H.264 payloader and depayloader
+alone): every access unit that arrives equals the one the app sent and a
+fresh encoder's over the frames the app dispatched, QP 34 from the frame
+whose source set 2 Mbps, an IDR right after a PLI, the reserved memory
+flat over two more start/stop cycles. The motion kernel is held against
+its plain version at the WebRTC entry point's default 1280x720 stripe
+too.
+
+It prints one JSON object per line (setup, server_resize, server_edge,
+webrtc as they end, then kernels, encoder, h264_encoder,
 h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
 h264_batch, server_h264_batch, server_faults, mesh_encoder, server_mesh,
 jpeg_device_frames, encoder_churn, h264_cross, profile, profile_h264,
@@ -1405,7 +1416,9 @@ def phase_me_kernel_check(int_ops_per_s: float):
     profiles give it: 17 stripes of 64x1920 (x264enc-striped), and one
     full-frame stripe of 1088x1920 (x264enc, whose rows 1080-1087 are
     replicate padding inside the stripe). The kernel's entry carries the
-    striped numbers; ``full_frame`` those of the full-frame shape."""
+    striped numbers; ``full_frame`` those of the full-frame shape, which
+    is also the WebRTC mode's one stripe at 1080p; ``webrtc_shapes`` the
+    WebRTC entry point's default 1280x720 stripe, [1,720,1280]."""
     from selkies_tpu_torch import _build
     from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
 
@@ -1425,6 +1438,11 @@ def phase_me_kernel_check(int_ops_per_s: float):
         resize[f"{w}x{h}/full_frame"] = _me_at_shape(
             H264StripeEncoder(w, h, fullframe=True, device=DEVICE),
             int_ops_per_s)
+    # the WebRTC mode's one stripe over the frame: at 1080p it is the
+    # full-frame shape above; the entry point's default 1280x720 is its own
+    webrtc = {"1280x720": _me_at_shape(
+        H264StripeEncoder(1280, 720, stripe_height=720, device=DEVICE),
+        int_ops_per_s)}
     lanes = {f"N{n}": _me_at_shape(
         H264StripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE),
         int_ops_per_s, sessions=n) for n in MESH_SIZES}
@@ -1442,6 +1460,7 @@ def phase_me_kernel_check(int_ops_per_s: float):
         "full_frame": full,
         "lane_shapes": lanes,
         "resize_shapes": resize,
+        "webrtc_shapes": webrtc,
     }
     return entry
 
@@ -3188,6 +3207,320 @@ def phase_encoder_churn():
     return out
 
 
+#: webrtc: access units the main session streams (the source runs at
+#: WEBRTC_FPS until they have arrived; frames the pipeline has no room for
+#: are dropped at submit, as served), the source frame whose next_frame()
+#: sets 2 Mbps (QP 34), the stand-in's PLI after this many access units,
+#: and the access units of each of the two start/stop cycles after it
+WEBRTC_FPS = 60
+WEBRTC_AUS = 130
+WEBRTC_MIN_AUS = 120
+WEBRTC_QP_AT = 60
+WEBRTC_PLI_AT = 100
+WEBRTC_PLI_WITHIN = 3
+WEBRTC_CYCLE_FRAMES = 10
+WEBRTC_TIMEOUT_S = 60.0
+
+
+class _WebRTCSource:
+    """1080p scroll frames (every frame damages the one stripe), recorded;
+    at frame ``qp_at`` it sets the app's bitrate to 2 Mbps before it
+    returns that frame, so the frame's dispatch takes the new QP."""
+
+    def __init__(self, app, qp_at=None):
+        from selkies_tpu_torch.capture.synthetic import SyntheticSource
+
+        self.app, self.qp_at = app, qp_at
+        self.src = SyntheticSource(W, H, WEBRTC_FPS, pattern="scroll",
+                                   seed=3)
+        self.frames = []
+
+    def next_frame(self):
+        if len(self.frames) == self.qp_at:
+            self.app.set_video_bitrate(2_000_000)
+        f = self.src.next_frame()
+        self.frames.append(f)
+        return f
+
+
+class _RtpLoopbackSender:
+    """The video sender of :class:`_RtpLoopbackPeer`: the port's H.264
+    payloader, the RTP packets serialised and parsed, and the port's
+    depayloader, which hands each access unit to ``on_frame``."""
+
+    def __init__(self, on_frame):
+        from selkies_tpu_torch.webrtc.h264 import (H264Depayloader,
+                                                   H264Payloader)
+
+        self.ssrc, self.seq, self.on_frame = 0x5E1F, 0, on_frame
+        self._pay, self._depay = H264Payloader(), H264Depayloader()
+
+    def send_frame(self, au: bytes, ts: int) -> None:
+        from selkies_tpu_torch.webrtc.rtp import RtpPacket
+
+        pkts = self._pay.packetize(au, self.ssrc, 102, self.seq, ts)
+        self.seq = (self.seq + len(pkts)) & 0xFFFF
+        for p in pkts:
+            out = self._depay.feed(RtpPacket.parse(p.serialize()))
+            if out is not None:
+                self.on_frame(out, p.timestamp)
+
+
+class _RtpLoopbackPeer:
+    """The app's peer where ``cryptography`` is absent (no DTLS): video
+    through :class:`_RtpLoopbackSender`; audio and the data channel go
+    nowhere; an RTCP PLI is serialised, parsed and handed to
+    ``on_keyframe_request`` as the peer connection does."""
+
+    def __init__(self, on_frame):
+        import types
+
+        self.video = _RtpLoopbackSender(on_frame)
+        self.on_bitrate = self.on_keyframe_request = None
+        self._null = types.SimpleNamespace(
+            send_frame=lambda *a: None, open=False, on_message=None,
+            on_open=None, ssrc=0)
+
+    def add_video_sender(self):
+        return self.video
+
+    def add_audio_sender(self):
+        return self._null
+
+    def create_data_channel(self, *a, **k):
+        return self._null
+
+    async def create_offer(self) -> str:
+        return ""
+
+    async def wait_connected(self, timeout: float = 15.0) -> None:
+        return None
+
+    def pli(self) -> None:
+        from selkies_tpu_torch.webrtc.rtp import RtcpPli, parse_rtcp
+
+        for pkt in parse_rtcp(RtcpPli(1, self.video.ssrc).serialize()):
+            if isinstance(pkt, RtcpPli) and self.on_keyframe_request:
+                self.on_keyframe_request()
+
+    async def close(self) -> None:
+        return None
+
+
+def _nal_types(au: bytes):
+    return [au[i + 4] & 0x1F for i in range(len(au) - 4)
+            if au[i:i + 4] == b"\x00\x00\x00\x01"]
+
+
+async def _webrtc_session(n_aus: int, qp_at=None, pli_at=None) -> dict:
+    """One session of the port's WebRTCStreamingApp (its default encoder:
+    one stripe over the frame, on the card) to a browser stand-in on
+    127.0.0.1, SDP exchanged in-process, until ``n_aus`` access units have
+    arrived; the congestion controller's estimates are recorded, not
+    applied, so the QP changes only where the source changes it. Returns
+    what was sent, received and dispatched."""
+    from selkies_tpu_torch.server.webrtc_app import WebRTCStreamingApp
+
+    got, sent, dispatch_ms, estimates, pli = [], {}, [], [], {}
+
+    def on_frame(au, ts):
+        got.append((au, ts, time.perf_counter()))
+
+    try:
+        import cryptography  # noqa: F401
+
+        transport = "dtls-srtp"
+    except ImportError:
+        transport = "rtp-loopback: no cryptography"
+
+    class App(WebRTCStreamingApp):
+        def _new_peer(self):
+            if transport == "dtls-srtp":
+                return super()._new_peer()
+            return _RtpLoopbackPeer(on_frame)
+
+    import types
+
+    holder = {}
+    settings = types.SimpleNamespace(initial_width=W, initial_height=H,
+                                     framerate=WEBRTC_FPS)
+    app = App(settings, interfaces=["127.0.0.1"], device=DEVICE,
+              source_factory=lambda w, h, fps: holder.setdefault(
+                  "src", _WebRTCSource(app, qp_at)))
+    t0 = time.perf_counter()
+    await app.start_pipeline()
+    enc, src = app.encoder, holder["src"]
+    adopted = []
+    enc.adopt = lambda f, _a=enc.adopt: (adopted.append(f), _a(f))[1]
+
+    def timed(rgb, fetch, _d=enc._dispatch):
+        t = time.perf_counter()
+        try:
+            return _d(rgb, fetch)
+        finally:
+            dispatch_ms.append((time.perf_counter() - t) * 1e3)
+    enc._dispatch = timed
+    send = app.video_sender.send_frame
+
+    def record_send(au, ts):
+        sent[ts] = (au, time.perf_counter())
+        send(au, ts)
+    app.video_sender.send_frame = record_send
+    app.pc.on_bitrate = estimates.append
+    on_key = app.pc.on_keyframe_request
+
+    def keyframe_request():
+        pli.setdefault("adopted_at_request", len(adopted))
+        on_key()
+    app.pc.on_keyframe_request = keyframe_request
+
+    browser = None
+    if transport == "dtls-srtp":
+        from selkies_tpu_torch.webrtc.peerconnection import PeerConnection
+
+        browser = PeerConnection(interfaces=["127.0.0.1"])
+        browser.video_receiver().on_frame = on_frame
+        await browser.set_remote_description(await app.pc.create_offer(),
+                                             "offer")
+        await app._on_sdp("answer", await browser.create_answer())
+    try:
+        deadline = time.perf_counter() + WEBRTC_TIMEOUT_S
+        while len(got) < n_aus and time.perf_counter() < deadline:
+            if pli_at is not None and len(got) >= pli_at and not pli:
+                pli["aus_at_request"] = len(got)
+                if browser is not None:
+                    browser.request_keyframe(app.video_sender.ssrc)
+                else:
+                    app.pc.pli()
+            check(app.error is None, f"webrtc pipeline failed: {app.error!r}")
+            await asyncio.sleep(0.005)
+        wall = time.perf_counter() - t0
+    finally:
+        await app.stop_pipeline()
+        if browser is not None:
+            await browser.close()
+    check(app.error is None, f"webrtc pipeline failed: {app.error!r}")
+    return {"transport": transport, "got": got, "sent": sent,
+            "adopted": adopted, "frames": src.frames,
+            "dispatch_ms": dispatch_ms, "estimates": estimates, "pli": pli,
+            "wall_s": wall, "qp": enc.qp}
+
+
+def _webrtc_reference(adopted, idr_at, qp_from) -> list:
+    """A fresh port encoder on the card, as the app builds it, one frame
+    at a time over the frames the app dispatched: QP 34 from ``qp_from``
+    on, a keyframe requested before each frame in ``idr_at``."""
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+    from selkies_tpu_torch.server.webrtc_app import bitrate_to_qp
+
+    enc = H264StripeEncoder(W, H, stripe_height=-(-H // 16) * 16,
+                            device=DEVICE)
+    out = []
+    for k, f in enumerate(adopted):
+        if k == qp_from:
+            enc.qp = bitrate_to_qp(2_000_000)
+        if k in idr_at:
+            enc.request_keyframe()
+        out.append(b"".join(s.annexb for s in enc.encode_frame(f)))
+    return out
+
+
+def phase_webrtc():
+    """The WebRTC mode on the card: the port's WebRTCStreamingApp at
+    1920x1080 and 60 fps (H264StripeEncoder, one stripe of 1088 rows,
+    behind PipelinedH264Encoder(depth=3, fetch_group=1)) streams scroll
+    frames to a browser stand-in PeerConnection on 127.0.0.1 over
+    ICE/DTLS-SRTP (or, without ``cryptography``, through the H.264
+    payloader and depayloader alone). Checks: at least WEBRTC_MIN_AUS
+    access units arrive, each equal to the one the app handed to
+    send_frame, RTP timestamps seq*90000/60; every arrived AU equals a
+    fresh synchronous encoder's over the frames the app dispatched, with
+    QP 34 from the frame whose next_frame() set 2 Mbps; a PLI from the
+    stand-in gets an IDR within WEBRTC_PLI_WITHIN dispatched frames; two
+    more start/stop cycles leave the reserved memory flat. Returns the
+    phase's line and the main session's me_mc launches."""
+    import gc
+
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+
+    t_phase = time.perf_counter()
+    dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    run = asyncio.run(_webrtc_session(WEBRTC_AUS, qp_at=WEBRTC_QP_AT,
+                                      pli_at=WEBRTC_PLI_AT))
+    launches = me_mc_stripes.launches
+    got, sent, adopted = run["got"], run["sent"], run["adopted"]
+    step = 90000 // WEBRTC_FPS
+    check(len(got) >= WEBRTC_MIN_AUS,
+          f"webrtc: {len(got)} access units arrived, {WEBRTC_MIN_AUS} "
+          "expected")
+    seqs = [ts // step for _, ts, _ in got]
+    check(seqs == list(range(len(got))) and all(ts % step == 0
+                                                for _, ts, _ in got),
+          f"webrtc: RTP timestamps are not seq*{step}: {seqs[:12]}...")
+    check(all(sent.get(ts, (None,))[0] == au for au, ts, _ in got),
+          "webrtc: an arrived AU differs from the one handed to send_frame")
+    idr = [k for k, (au, _, _) in enumerate(got) if 5 in _nal_types(au)]
+    p_sent = len(got) - len(idr)
+    check(dct8_quant_zigzag.launches == 0, "the WebRTC path launched dct8")
+    # the QP change: the first dispatched frame at or after WEBRTC_QP_AT
+    src_index = {id(f): k for k, f in enumerate(run["frames"])}
+    qp_from = next(j for j, f in enumerate(adopted)
+                   if src_index[id(f)] >= WEBRTC_QP_AT)
+    want = _webrtc_reference(adopted[:len(got)], set(idr) - {0}, qp_from)
+    n_equal = sum(a == b for (a, _, _), b in zip(got, want))
+    check(n_equal == len(got), f"webrtc: {len(got) - n_equal} of {len(got)} "
+          "AUs differ from a fresh synchronous encoder's (QP 34 from "
+          f"frame {qp_from})")
+    check(run["qp"] == 34, f"webrtc: the encoder's QP is {run['qp']}")
+    pli = run["pli"]
+    req = pli.get("adopted_at_request")
+    # the frame handed over as the request came in may take it already
+    after = [k for k in idr if req is not None and k >= req - 1]
+    check(bool(after) and after[0] - req < WEBRTC_PLI_WITHIN,
+          f"webrtc: no IDR within {WEBRTC_PLI_WITHIN} frames of the PLI "
+          f"({pli}, IDRs at {idr})")
+    lat = sorted((t_got - sent[ts][1]) * 1e3 for _, ts, t_got in got)
+    arrive = [t for _, _, t in got]
+    gc.collect()
+    reserved = [_reserved_mb()]
+    for _ in range(2):
+        cyc = asyncio.run(_webrtc_session(WEBRTC_CYCLE_FRAMES))
+        check(len(cyc["got"]) >= WEBRTC_CYCLE_FRAMES,
+              f"webrtc cycle: {len(cyc['got'])} AUs")
+        del cyc
+        gc.collect()
+        reserved.append(_reserved_mb())
+    check(max(reserved) - reserved[0] <= CHURN_GROWTH_MB,
+          f"webrtc: reserved memory grew {reserved} MB over start/stop")
+    check(dct8_quant_zigzag.launches == 0, "the WebRTC path launched dct8")
+    disp = sorted(run["dispatch_ms"])
+    return {
+        "phase": "webrtc", "width": W, "height": H, "fps": WEBRTC_FPS,
+        "transport": run["transport"],
+        "stripe": f"[1,{-(-H // 16) * 16},{W}]",
+        "aus_received": len(got), "aus_equal_to_sent": len(got),
+        "aus_equal_to_fresh_encoder": n_equal,
+        "frames_dispatched": len(adopted),
+        "frames_from_source": len(run["frames"]),
+        "idr_at": idr, "p_frames_sent": p_sent,
+        "me_mc_launches": launches,
+        "dct8_launches": dct8_quant_zigzag.launches,
+        "qp_from_frame": qp_from, "qp_after": run["qp"],
+        "pli": {**pli, "idr_at_dispatched_frame": after[0],
+                "frames_after_request": after[0] - req},
+        "gcc_estimates": len(run["estimates"]),
+        "gcc_last_bps": run["estimates"][-1] if run["estimates"] else None,
+        "delivered_fps": (len(got) - 1) / (arrive[-1] - arrive[0]),
+        "dispatch_ms_p50": disp[len(disp) // 2],
+        "send_to_on_frame_ms_p50": lat[len(lat) // 2],
+        "send_to_on_frame_ms_p95": lat[int(0.95 * (len(lat) - 1))],
+        "reserved_mb_after_each_session": reserved,
+        "session_s": run["wall_s"],
+        "seconds": time.perf_counter() - t_phase,
+    }, launches
+
+
 #: h264_cross: the encoder configurations held card against CPU
 CROSS_CONFIGS = {
     "x264enc-striped": dict(stripe_height=STRIPE, entropy="device"),
@@ -3809,6 +4142,16 @@ def main() -> int:
 
     _settle("encoder_churn")
     churn = phase_encoder_churn()
+    # the WebRTC mode: counts from 0 just before its main session, read
+    # just after it
+    _settle("webrtc")
+    webrtc, webrtc_launches = phase_webrtc()
+    emit(webrtc)
+    check(webrtc_launches >= webrtc["p_frames_sent"],
+          f"webrtc: {webrtc_launches} me_mc launches for "
+          f"{webrtc['p_frames_sent']} P frames sent")
+    kern_me["launches_by_path"]["webrtc:onestripe"] = webrtc_launches
+    kern["launches_by_path"]["webrtc:onestripe"] = webrtc["dct8_launches"]
     enc.update(phase_small_reference())
     cross = phase_h264_cross()
     _settle("profile")

@@ -867,3 +867,87 @@ def test_profiler_route_capture_holds_a_kernel_event(cuda_device):
     assert any(e.get("cat") == "kernel"
                and "dct8_quant_zigzag_kernel" in e.get("name", "")
                for e in events)
+
+
+@pytest.mark.parametrize("w,h", [(1280, 720), (1920, 1080)])
+def test_webrtc_app_encoder_kernel_equals_plain(cuda_device, w, h):
+    """The WebRTC app's encoder is one stripe over the 16-row padded frame
+    ([1,720,1280] at the entry point's default, [1,1088,1920] at 1080p):
+    the motion kernel equals its plain version at that shape."""
+    import types
+
+    from selkies_tpu_torch.server.webrtc_app import WebRTCStreamingApp
+
+    app = WebRTCStreamingApp(types.SimpleNamespace(
+        initial_width=w, initial_height=h, framerate=60), device=cuda_device)
+    enc = app._default_encoder(w, h)
+    assert (enc.n_stripes, enc.stripe_h, enc.pad_w) == (1, -(-h // 16) * 16,
+                                                         w)
+    for kind in ("scroll", "noise", "flat", "lattice"):
+        cur, ref = _me_pair(kind, h=enc.pad_h, w=w)
+        _me_check(cuda_device, cur, ref, enc.stripe_h, enc.search)
+
+
+def _webrtc_video_loop(device, w=256, h=144, n=12, qp_at=5, key_at=8):
+    """The WebRTC app's video loop (its default encoder behind the
+    pipelined encoder) over ``n`` scroll frames, one in flight at a time,
+    with the bitrate set to 2 Mbps at frame ``qp_at`` and a keyframe asked
+    for at frame ``key_at`` from inside the source: the (AU, RTP
+    timestamp) pairs handed to the video sender."""
+    import asyncio
+    import types
+
+    from selkies_tpu_torch.server.webrtc_app import WebRTCStreamingApp
+
+    app = WebRTCStreamingApp(types.SimpleNamespace(
+        initial_width=w, initial_height=h, framerate=60), device=device)
+    src = SyntheticSource(w, h, pattern="scroll", seed=4)
+    sent, k = [], [0]
+
+    def next_frame():
+        if k[0] >= n or app.frames_sent < k[0]:
+            return None
+        if k[0] == qp_at:
+            app.set_video_bitrate(2_000_000)
+        if k[0] == key_at:
+            app._on_keyframe_request()
+        k[0] += 1
+        return src.next_frame()
+
+    async def connected():
+        return None
+
+    async def run():
+        app.encoder = app._default_encoder(w, h)
+        app.source = types.SimpleNamespace(next_frame=next_frame)
+        app.pc = types.SimpleNamespace(wait_connected=connected)
+        app.video_sender = types.SimpleNamespace(
+            send_frame=lambda au, ts: sent.append((au, ts)))
+        app._running = True
+        task = asyncio.ensure_future(app._video_loop())
+        for _ in range(2000):
+            if len(sent) >= n:
+                break
+            await asyncio.sleep(0.01)
+        app._running = False
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+
+    asyncio.run(run())
+    return sent
+
+
+def test_webrtc_session_on_card_equals_cpu(cuda_device):
+    """The WebRTC app's video loop gives the same access units and RTP
+    timestamps on the card as on the CPU, the QP change and the keyframe
+    request landing on the same frames."""
+    before = me_mc_stripes.launches
+    got = _webrtc_video_loop(cuda_device)
+    assert me_mc_stripes.launches - before >= 10       # one per P frame
+    want = _webrtc_video_loop("cpu")
+    assert len(got) == 12 and [ts for _, ts in got] == [
+        1500 * k for k in range(12)]
+    assert got == want
+    idr = [k for k, (au, _) in enumerate(got) if b"\x00\x00\x00\x01\x65" in au
+           or b"\x00\x00\x01\x65" in au]
+    assert idr == [0, 8]

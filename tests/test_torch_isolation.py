@@ -23,6 +23,18 @@ def _forbidden(name: str) -> bool:
             or name == "selkies_tpu" or name.startswith("selkies_tpu."))
 
 
+def test_scan_covers_the_webrtc_mode():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    jax_webrtc = sorted((ROOT / "selkies_tpu" / "webrtc").glob("*.py"))
+    assert len(jax_webrtc) == 15
+    want = {f"selkies_tpu_torch/webrtc/{p.name}" for p in jax_webrtc} | {
+        f"selkies_tpu_torch/rtc/{m}.py"
+        for m in ("monitors", "signaling_client", "turn_rest")} | {
+        f"selkies_tpu_torch/server/{m}.py"
+        for m in ("webrtc_app", "webrtc_main")}
+    assert want <= names
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_no_module_imports_jax_or_the_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -73,6 +85,14 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.input.cursor\n"
         "import selkies_tpu_torch.audio\n"
         "import selkies_tpu_torch.rtc\n"
+        "import selkies_tpu_torch.rtc.monitors\n"
+        "import selkies_tpu_torch.rtc.signaling_client\n"
+        "import selkies_tpu_torch.rtc.turn_rest\n"
+        "import selkies_tpu_torch.webrtc\n"
+        "import selkies_tpu_torch.webrtc.peerconnection\n"
+        "import selkies_tpu_torch.webrtc.media\n"
+        "import selkies_tpu_torch.server.webrtc_app\n"
+        "import selkies_tpu_torch.server.webrtc_main\n"
         "from selkies_tpu_torch.server import bundled_web_root\n"
         "assert bundled_web_root() is not None\n"
         "from selkies_tpu_torch.audio import opus_available\n"
@@ -175,6 +195,46 @@ def test_server_entry_point_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         asyncio.run(tmain._amain(Settings(argv=[], env={"SELKIES_PORT": "0"})))
+
+
+def test_webrtc_entry_point_without_card_raises(monkeypatch):
+    """``webrtc_main._amain`` resolves the device first: with no card and
+    none asked for it raises before it builds the signaling server (and
+    so before it binds a port)."""
+    import asyncio
+
+    from selkies_tpu_torch import rtc as trtc
+    from selkies_tpu_torch.server import webrtc_main
+    from selkies_tpu_torch.settings import Settings
+
+    built = []
+    monkeypatch.setattr(trtc, "SignalingServer",
+                        lambda *a, **k: built.append(k))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        asyncio.run(webrtc_main._amain(
+            Settings(argv=[], env={"SELKIES_WEB_PORT": "0"})))
+    assert built == []
+
+
+def test_webrtc_app_imports_without_cryptography_or_websockets():
+    """The app module imports its transport and its signaling client
+    where it first uses them, so it imports on a host that lacks
+    ``cryptography`` or ``websockets``."""
+    code = ("import sys\n"
+            "for m in ('cryptography', 'websockets', 'aiohttp'):\n"
+            "    sys.modules[m] = None\n"
+            "from selkies_tpu_torch.server.webrtc_app import (\n"
+            "    WebRTCStreamingApp, bitrate_to_qp)\n"
+            "from selkies_tpu_torch.webrtc.h264 import (\n"
+            "    H264Depayloader, H264Payloader)\n"
+            "from selkies_tpu_torch.webrtc.rtp import RtpPacket\n"
+            "assert bitrate_to_qp(2_000_000) == 34\n"
+            "print('imported')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "imported" in out.stdout
 
 
 def test_kernel_build_is_lazy_and_sources_ship():

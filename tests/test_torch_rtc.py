@@ -1,11 +1,9 @@
-"""The port's web plane (``selkies_tpu_torch/rtc``: ``turn.py`` and
-``signaling.py``) against the JAX package's: the cases of
-``tests/test_rtc.py`` for TURN credentials, the RTC config round trip,
-the signaling relay, the duplicate uid, the HTTP endpoints, basic auth,
-rooms and the files plane with its hostile names run against the port's
-copies (the JAX package's signaling client talks to the port's server).
-The RTC config monitors and the turn-rest service belong to the WebRTC
-mode, which is not ported yet, and their cases wait for it."""
+"""The port's WebRTC session plumbing (``selkies_tpu_torch/rtc``) against
+the JAX package's: every case of ``tests/test_rtc.py`` (TURN credentials,
+the RTC config round trip and its monitors, the signaling relay, client
+and server, the duplicate uid, the HTTP endpoints, basic auth, rooms, the
+files plane with its hostile names, the turn-rest service) runs against
+the port's copies, and the TURN helpers give the JAX package's results."""
 
 import sys
 import types
@@ -21,38 +19,39 @@ from selkies_tpu import rtc as jrtc  # noqa: E402
 from selkies_tpu_torch import rtc as trtc  # noqa: E402
 from selkies_tpu_torch.rtc import turn as tturn  # noqa: E402
 
-#: the cases of test_rtc.py this slice ports (the rest need the monitors,
-#: the signaling client's WebRTC side or turn_rest)
+#: every case of test_rtc.py
 PORTED = {
     "test_hmac_credentials_verify", "test_hmac_credentials_sanitizes_colons",
     "test_rtc_config_roundtrip", "test_parse_rtc_config_escapes_special_chars",
+    "test_hmac_monitor_fires_immediately", "test_file_monitor_detects_change",
     "test_signaling_session_relay", "test_signaling_rejects_duplicate_uid",
     "test_signaling_http_endpoints", "test_signaling_basic_auth",
     "test_signaling_rooms", "test_files_download_plane",
-    "test_files_plane_hostile_names",
+    "test_files_plane_hostile_names", "test_turn_rest_service",
 }
 
-# the port's turn/signaling names under the import the cases make; the
-# WebRTC-mode names stay the JAX package's (the client drives the server)
+# the port's names under the import the cases make
 _names = types.ModuleType("_torch_rtc_names")
 for _n in ("build_rtc_config", "generate_rtc_config", "hmac_credentials",
-           "parse_rtc_config", "SignalingServer"):
+           "parse_rtc_config", "SignalingServer", "HMACRTCMonitor",
+           "RTCConfigFileMonitor", "SignalingClient"):
     setattr(_names, _n, getattr(trtc, _n))
-for _n in ("HMACRTCMonitor", "RTCConfigFileMonitor", "SignalingClient"):
-    setattr(_names, _n, getattr(jrtc, _n))
 sys.modules["_torch_rtc_names"] = _names
 
 JAX_CASES = load_cases("test_rtc.py", port=False)
 PORT_CASES = load_cases("test_rtc.py", port=True, replace=[
     ("from selkies_tpu.rtc import (", "from _torch_rtc_names import ("),
-    ("from selkies_tpu.rtc.turn_rest import TurnRestService",
-     "TurnRestService = None"),
 ])
 
 
 def test_ported_cases_exist():
-    assert PORTED <= set(case_names(JAX_CASES))
+    assert PORTED == set(case_names(JAX_CASES))
     assert PORT_CASES.SignalingServer is trtc.SignalingServer
+    assert PORT_CASES.SignalingClient is trtc.SignalingClient
+    assert PORT_CASES.HMACRTCMonitor is trtc.HMACRTCMonitor
+    from selkies_tpu_torch.rtc.turn_rest import TurnRestService
+
+    assert PORT_CASES.TurnRestService is TurnRestService
 
 
 @pytest.mark.parametrize("case", sorted(PORTED))
@@ -79,5 +78,4 @@ def test_turn_functions_equal_jax():
                                                protocol=proto, turn_tls=tls)
         assert tturn.parse_rtc_config(cfg_t) == jturn.parse_rtc_config(cfg_t)
     assert tturn.DEFAULT_RTC_CONFIG == jturn.DEFAULT_RTC_CONFIG
-    assert sorted(trtc.__all__) == sorted(
-        n for n in jrtc.__all__ if hasattr(trtc, n))
+    assert trtc.__all__ == jrtc.__all__
