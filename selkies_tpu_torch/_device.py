@@ -8,6 +8,7 @@ for, construction raises — the port never carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional, Union
 
@@ -56,6 +57,23 @@ def encoder_stream(device: torch.device) -> "Optional[torch.cuda.Stream]":
             stream = torch.cuda.Stream(device=device)
             _streams[device] = stream
         return stream
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device, stream=None):
+    """``device`` current and ``stream`` (by default the device's encoder
+    stream) its current stream, for the block: every launch, allocation
+    and copy made inside goes to that device, whichever device was
+    current before. A no-op on the CPU. The lanes of a mesh enter it per
+    shard, so a shard's work runs on the shard's device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield
+        return
+    if stream is None:
+        stream = encoder_stream(device)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
 
 
 def adopt_frame(frame: torch.Tensor, device: torch.device,

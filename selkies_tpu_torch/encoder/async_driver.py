@@ -191,9 +191,15 @@ class AsyncEncodeDriver:
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait for the driver thread to exit after :meth:`close` (teardown
         off the event loop: process exit must not find the thread inside
-        a device call). True when it has exited."""
+        a device call). True when it has exited; a wait of ``timeout``
+        > 0 that ends with the thread alive is logged as an error, naming
+        it."""
         self._thread.join(timeout)
-        return not self._thread.is_alive()
+        alive = self._thread.is_alive()
+        if alive and timeout:
+            logger.error("thread %s still running %.1f s after close",
+                         self._thread.name, timeout)
+        return not alive
 
     # -- control passthrough ----------------------------------------------
 

@@ -941,9 +941,14 @@ class ThreadedEncoderAdapter:
 
     def join(self, timeout: Optional[float] = None) -> bool:
         """Wait for the worker to exit after :meth:`close`; True when it
-        has."""
+        has. A wait of ``timeout`` > 0 that ends with the thread alive is
+        logged as an error, naming it."""
         self._thread.join(timeout)
-        return not self._thread.is_alive()
+        alive = self._thread.is_alive()
+        if alive and timeout:
+            logger.error("thread %s still running %.1f s after close",
+                         self._thread.name, timeout)
+        return not alive
 
     # -- worker ---------------------------------------------------------------
 

@@ -301,11 +301,19 @@ class Metrics:
         return True
 
     def stop_http(self) -> None:
+        """Stop the HTTP server and join its thread (a join that times out
+        is logged as an error, naming the thread)."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
             self._started = False
+        thread, self._http_thread = self._http_thread, None
+        if thread is not None:
+            thread.join(timeout=5.0)
+            if thread.is_alive():
+                logger.error("thread %s still running 5 s after stop",
+                             thread.name)
 
     # no-op-safe setters -------------------------------------------------
 

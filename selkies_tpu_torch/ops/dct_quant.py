@@ -10,7 +10,9 @@ first use and bound with ctypes); its source says what bounds it (memory:
 with its Y, Cb and Cr planes. CPU tensors go through
 :func:`dct8_quant_zigzag_plain`, plane by plane; CUDA tensors launch the
 kernel once for all planes or raise — there is no fallback from one to the
-other. Each launch adds one to ``dct8_quant_zigzag.launches``.
+other. Each launch runs with the planes' device current and adds one to
+``dct8_quant_zigzag.launches`` and to its device's entry of
+``dct8_quant_zigzag.launches_by_device``.
 """
 
 from __future__ import annotations
@@ -144,13 +146,21 @@ def dct8_quant_zigzag(planes: Sequence[Tuple[torch.Tensor, torch.Tensor,
             plane.data_ptr(), recip.data_ptr(), row_idx.data_ptr(),
             out.data_ptr())
         a.H, a.W, a.pitch, a.nq = h, w, plane.stride(0), recip.shape[0]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(args, len(planes), _cmat_host(), stream)
+    # the launch goes to the current device's context: make the planes'
+    # device current, whichever device the caller had current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(args, len(planes), _cmat_host(), stream)
     if err != 0:
-        raise RuntimeError(f"dct8_quant_zigzag launch failed: CUDA error {err}")
+        raise RuntimeError(f"dct8_quant_zigzag launch failed on {dev}: "
+                           f"CUDA error {err}")
     dct8_quant_zigzag.launches += 1
+    by_dev = dct8_quant_zigzag.launches_by_device
+    by_dev[str(dev)] = by_dev.get(str(dev), 0) + 1
     return outs
 
 
-#: kernel launches since the last reset (plain-version calls do not count)
+#: kernel launches since the last reset (plain-version calls do not
+#: count), in total and by device ("cuda:0": n)
 dct8_quant_zigzag.launches = 0
+dct8_quant_zigzag.launches_by_device = {}

@@ -10,7 +10,9 @@ bounds it (byte-SIMD integer instructions: 1.31 G byte differences per
 :func:`me_mc_stripes` is the wrapper the encoder calls. A CPU tensor goes
 through the plain version, :func:`~.motion.full_search_mc`; a CUDA tensor
 launches the kernel or raises — there is no fallback from one to the
-other. Each launch adds one to ``me_mc_stripes.launches``.
+other. Each launch runs with the planes' device current and adds one to
+``me_mc_stripes.launches`` and to its device's entry of
+``me_mc_stripes.launches_by_device``.
 """
 
 from __future__ import annotations
@@ -101,16 +103,23 @@ def me_mc_stripes(cur: torch.Tensor, ref: torch.Tensor,
     pred_y = torch.empty_like(cur)
     pred_cb = torch.empty_like(ref_cb)
     pred_cr = torch.empty_like(ref_cr)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(cur.data_ptr(), ref.data_ptr(), ref_cb.data_ptr(),
-             ref_cr.data_ptr(), ranks.data_ptr(), offs.data_ptr(), search,
-             S, h, w, mv.data_ptr(), pred_y.data_ptr(), pred_cb.data_ptr(),
-             pred_cr.data_ptr(), stream)
+    # the launch goes to the current device's context: make the planes'
+    # device current, whichever device the caller had current
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(cur.data_ptr(), ref.data_ptr(), ref_cb.data_ptr(),
+                 ref_cr.data_ptr(), ranks.data_ptr(), offs.data_ptr(),
+                 search, S, h, w, mv.data_ptr(), pred_y.data_ptr(),
+                 pred_cb.data_ptr(), pred_cr.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"me_mc launch failed: CUDA error {err}")
+        raise RuntimeError(f"me_mc launch failed on {dev}: CUDA error {err}")
     me_mc_stripes.launches += 1
+    by_dev = me_mc_stripes.launches_by_device
+    by_dev[str(dev)] = by_dev.get(str(dev), 0) + 1
     return mv, pred_y, pred_cb, pred_cr
 
 
-#: kernel launches since the last reset (plain-version calls do not count)
+#: kernel launches since the last reset (plain-version calls do not
+#: count), in total and by device ("cuda:0": n)
 me_mc_stripes.launches = 0
+me_mc_stripes.launches_by_device = {}

@@ -41,10 +41,20 @@ suppresses on the device, so each dispatch stays dense while idle
 sessions cost no wire bytes. Lanes use the server-wide quality settings;
 per-client encoder overrides are ignored in this mode.
 
-The worker thread issues the lanes' device work, so it runs with the
-card's one encoder stream current (``_device.encoder_stream``), as every
-thread of the port that issues device work does. With an injected
+The worker thread issues the lanes' device work. Each tick of a scheduler
+runs with its mesh's first device current on that device's encoder stream
+(``_device.encoder_stream``: one stream per device, which every thread of
+the port that issues device work uses), and a lane enters each shard's
+own device and stream for the shard's work. With an injected
 ``enc_factory`` nothing is built on a device.
+
+**Split-frame encoding** (SFE): a geometry of at least ``sfe_min_pixels``
+over a mesh of several devices gets SFE lanes — the mesh is repartitioned
+stripe-major, so one session's stripe bands shard across ``sfe_shards``
+devices (stripes decode independently: each shard codes its own, and the
+harvest concatenates them into one access unit). An SFE slot costs
+``chips_per_slot`` devices, and a fault on any one of its shards drops the
+whole frame (a torn access unit is never an outcome).
 
 A scheduler ticks on a :class:`LaneTicker`'s thread. Given none, it gets
 one of its own, as the JAX scheduler has its own thread; the server gives
@@ -69,6 +79,10 @@ logger = logging.getLogger("selkies_tpu_torch.parallel")
 #: seconds a failed lane build blocks further build attempts — a broken
 #: device must not be re-probed on every join
 LANE_BUILD_BLOCK_S = 30.0
+
+#: seconds a ticker waits for a tick, or for its thread, to end when a
+#: scheduler leaves it
+JOIN_S = 5.0
 
 #: process-global lane id counter: geometry buckets share one fault
 #: injector, so a ``mesh.slot_raise=lane:slot`` arming must name exactly
@@ -216,10 +230,9 @@ class LaneTicker:
     such threads contend for the GIL with each other and with the event
     loop: on the H100 host a second bucket's own thread cut the first
     bucket's displays to under half their rate (``chip_smoke.py``'s
-    ``server_resize``, ``lane_own_tickers``). The thread enters the stream
-    context of the scheduler that started it (the card's encoder stream,
-    which every scheduler of one card shares) and ends when no scheduler
-    is left."""
+    ``server_resize``, ``lane_own_tickers``). Each tick enters its own
+    scheduler's stream context (the mesh's first device, on that device's
+    encoder stream), and the thread ends when no scheduler is left."""
 
     def __init__(self) -> None:
         self._cond = threading.Condition()
@@ -242,59 +255,66 @@ class LaneTicker:
                 return False
             died = self.thread is not None
             self.thread = threading.Thread(
-                target=self._run, args=(coord,), name="mesh-encode",
+                target=self._run, name="mesh-encode",
                 daemon=True)
             self.thread.start()
             return died
 
     def remove(self, coord: "MeshEncodeCoordinator") -> None:
         """Stop ticking ``coord``: when this returns no tick of it runs or
-        will run. The last one out joins the thread."""
+        will run. The last one out joins the thread. A tick or a join that
+        outlasts ``JOIN_S`` is logged as an error naming the thread left
+        running (a thread alive at process exit may be inside a device
+        call)."""
         me = threading.current_thread()
         with self._cond:
             if coord in self._coords:
                 self._coords.remove(coord)
-            if me is not self.thread:
-                self._cond.wait_for(lambda: self._current is not coord,
-                                    timeout=5.0)
+            if me is not self.thread and not self._cond.wait_for(
+                    lambda: self._current is not coord, timeout=JOIN_S):
+                logger.error("%s: a tick of a removed scheduler outlasted "
+                             "%.0f s", self.thread.name, JOIN_S)
             thread = None if self._coords else self.thread
             if thread is not None:
                 self.thread = None
         self.kick.set()
         if thread is not None and thread is not me:
-            thread.join(timeout=5.0)
+            thread.join(timeout=JOIN_S)
+            if thread.is_alive():
+                logger.error("thread %s still running %.0f s after its last "
+                             "scheduler left", thread.name, JOIN_S)
 
     def ticks(self, coord: "MeshEncodeCoordinator") -> bool:
         with self._cond:
             return coord in self._coords
 
-    def _run(self, first: "MeshEncodeCoordinator") -> None:
+    def _run(self) -> None:
         me = threading.current_thread()
-        with first._stream_context():
-            while True:
+        while True:
+            with self._cond:
+                if self.thread is not me or not self._coords:
+                    return
+                coords = list(self._coords)
+            wake = time.monotonic() + 1.0
+            for coord in coords:
                 with self._cond:
-                    if self.thread is not me or not self._coords:
-                        return
-                    coords = list(self._coords)
-                wake = time.monotonic() + 1.0
-                for coord in coords:
-                    with self._cond:
-                        if coord not in self._coords:
-                            continue
-                        self._current = coord
-                    try:
-                        now = time.monotonic()
-                        if now >= coord._next_tick:
+                    if coord not in self._coords:
+                        continue
+                    self._current = coord
+                try:
+                    now = time.monotonic()
+                    if now >= coord._next_tick:
+                        with coord._stream_context():
                             coord._tick_once(now)
-                        wake = min(wake, coord._next_tick)
-                    finally:
-                        with self._cond:
-                            self._current = None
-                            self._cond.notify_all()
-                delay = wake - time.monotonic()
-                if delay > 0:
-                    self.kick.wait(timeout=delay)
-                self.kick.clear()
+                    wake = min(wake, coord._next_tick)
+                finally:
+                    with self._cond:
+                        self._current = None
+                        self._cond.notify_all()
+            delay = wake - time.monotonic()
+            if delay > 0:
+                self.kick.wait(timeout=delay)
+            self.kick.clear()
 
 
 class MeshEncodeCoordinator:
@@ -319,13 +339,21 @@ class MeshEncodeCoordinator:
         lane_retire_s: float = 5.0,
         device=None,
         ticker: Optional[LaneTicker] = None,
+        sfe_shards: int = 1,
+        devices=None,
     ) -> None:
         self.profile = profile
         self.width, self.height = width, height
         self.framerate = float(framerate)
-        #: the card's encoder stream the worker thread runs with (None:
+        #: split-frame encoding: when > 1, every lane of this bucket is an
+        #: SFE lane — one session slot spans this many devices, each
+        #: encoding a stripe band of the same frame. The default factory
+        #: decides from sfe_min_pixels (and a configured stripe axis);
+        #: injected-encoder harnesses pass it
+        self.sfe_shards = max(1, int(sfe_shards))
+        #: the device whose encoder stream the ticks run with (None:
         #: injected lanes, or the CPU)
-        self._stream = None
+        self._device = None
         if enc_factory is not None:
             # injected lanes (tests): nothing built on a device, capacity
             # comes from the caller
@@ -336,7 +364,7 @@ class MeshEncodeCoordinator:
         else:
             self._enc_factory = self._build_default_factory(
                 mesh_spec, sessions_per_chip, width, height,
-                settings, stripe_h, profile, device)
+                settings, stripe_h, profile, device, devices)
         if max_lanes is None and settings is not None:
             max_lanes = int(getattr(settings, "mesh_max_lanes", 4) or 4)
         self.max_lanes = max(1, int(max_lanes or 4))
@@ -427,9 +455,7 @@ class MeshEncodeCoordinator:
         """Stripe shards one frame of this geometry should span: 1 below
         ``sfe_min_pixels`` (or on a single chip), else ``sfe_shards``
         (0 = every chip), clamped to the largest count that tiles the
-        slice. Pure policy — unit-testable without devices. Split-frame
-        encoding is not ported (ROADMAP Queue 1, item 2): no lane is built
-        from it, and on one card it is 1."""
+        slice. Pure policy — unit-testable without devices."""
         sfe_min = int(getattr(settings, "sfe_min_pixels", 0) or 0) \
             if settings is not None else 0
         if not sfe_min or total_chips <= 1 or width * height < sfe_min:
@@ -441,21 +467,59 @@ class MeshEncodeCoordinator:
             shards -= 1
         return shards
 
+    @staticmethod
+    def _mesh_devices(device=None, devices=None):
+        """The devices a mesh spec is laid over: ``devices`` when given
+        (a list that may name one card several times: shards side by side
+        on it); the CPU when ``device`` is the CPU; else every card, the
+        one ``device`` names first (None: every card)."""
+        import torch
+
+        from .._device import resolve_device
+
+        if devices is not None:
+            return [resolve_device(d) for d in devices]
+        if device is None:
+            return None
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            return [dev]
+        return [dev] + [torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())
+                        if i != dev.index]
+
     def _build_default_factory(self, mesh_spec, sessions_per_chip, width,
                                height, settings, stripe_h, profile,
-                               device=None):
-        from .._device import encoder_stream, resolve_device
-        from .mesh import MeshStripeEncoder, parse_mesh_spec
+                               device=None, devices=None):
+        from .mesh import Mesh, MeshStripeEncoder, parse_mesh_spec
         from .mesh_h264 import MeshH264Encoder
 
-        devices = None if device is None else [resolve_device(device)]
-        # a mesh over several cards (a stripe axis: split-frame encoding)
-        # makes the lane encoders raise, so its lanes fail to build
-        mesh = parse_mesh_spec(mesh_spec, devices)
+        # a spec that asks for more devices than there are raises here, as
+        # in the JAX package: a mesh is never folded onto fewer devices
+        mesh = parse_mesh_spec(mesh_spec,
+                               self._mesh_devices(device, devices))
+        total = mesh.shape["session"] * mesh.shape["stripe"]
+        shards = self._sfe_shard_count(total, width, height, settings)
+        if shards > 1:
+            # SFE lanes: this geometry's frames are too big for one device
+            # — re-partition the slice stripe-major, so one session's
+            # stripe bands shard across `shards` devices
+            flat = list(mesh.devices.flat)
+            mesh = Mesh([flat[r * shards:(r + 1) * shards]
+                         for r in range(total // shards)])
+            self.sfe_shards = shards
+            logger.info(
+                "SFE lane geometry for %dx%d (%s): %d stripe shards per "
+                "frame, %d session slot(s) per lane axis",
+                width, height, profile, shards, total // shards)
+        # an operator-configured stripe axis (tpu_mesh "…,stripe:M") is
+        # stripe sharding too: shard-keyed faults and SFE accounting see
+        # it even when sfe_min_pixels never fired
+        self.sfe_shards = max(self.sfe_shards, mesh.shape["stripe"])
         self.chips = mesh.shape["session"] * mesh.shape["stripe"]
         self.slots_per_lane = (
             mesh.shape["session"] * max(1, sessions_per_chip))
-        self._stream = encoder_stream(mesh.devices[0, 0])
+        self._device = mesh.devices[0, 0]
         kwargs: Dict[str, Any] = {}
         if profile == "x264enc-striped":
             # H.264 stripes in lanes; CRF settings map onto the QP scale
@@ -596,6 +660,11 @@ class MeshEncodeCoordinator:
                 "quarantined_slots": quarantined,
                 "active_sessions": len(self._sessions),
                 "lanes": len(self.lanes),
+                # SFE lanes span several devices per session slot: the
+                # admission verdict still thinks in slots, but capacity
+                # consumers see what one slot costs
+                "sfe_shards": self.sfe_shards,
+                "chips_per_slot": self.sfe_shards,
             }
 
     def _release(self, sid: int) -> None:
@@ -710,13 +779,14 @@ class MeshEncodeCoordinator:
             self.worker_restarts_total += 1
 
     def _stream_context(self):
-        """The card's encoder stream, current for the worker thread (a
-        no-op for injected lanes and on the CPU)."""
-        if self._stream is None:
+        """The mesh's first device current, on its encoder stream, for a
+        tick on the worker thread (a no-op for injected lanes and on the
+        CPU)."""
+        if self._device is None:
             return contextlib.nullcontext()
-        import torch
+        from .._device import on_device
 
-        return torch.cuda.stream(self._stream)
+        return on_device(self._device)
 
     def _tick_once(self, now: float) -> None:
         """One tick on the ticker's thread, and the time of the next."""
@@ -774,6 +844,7 @@ class MeshEncodeCoordinator:
                 "inflight_batches": sum(
                     len(ln.inflight_q) for ln in self.lanes),
                 "inflight_batches_max": self.inflight_batches_max,
+                "sfe_shards": self.sfe_shards,
                 "sfe_fetch_ms_p50": _p50(self._fetch_ms_window),
                 "sfe_concat_ms_p50": _p50(self._concat_ms_window),
                 "lane_detail": lane_detail,
@@ -928,8 +999,21 @@ class MeshEncodeCoordinator:
                 for slot, sess in list(lane.sessions.items()):
                     if sess.pending is None:
                         continue
+                    keys = ()
+                    if faults is not None:
+                        keys = [f"{lane.id}:{slot}", slot]
+                        if self.sfe_shards > 1:
+                            # an SFE slot answers to its shard identities
+                            # too: a fault targeting ONE stripe shard of
+                            # the frame still drops the WHOLE frame
+                            # (whole-frame containment — a torn access
+                            # unit is never an outcome) and charges this
+                            # session's slot
+                            for k in range(self.sfe_shards):
+                                keys += [f"{lane.id}:{slot}:{k}",
+                                         f"shard:{k}"]
                     if faults is not None and faults.should_fire_for(
-                            "mesh.slot_raise", f"{lane.id}:{slot}", slot):
+                            "mesh.slot_raise", *keys):
                         # slot-scoped fault: charge THIS slot and drop its
                         # frame; cohabiting sessions' tick proceeds — a
                         # slot failure must never become a mesh failure

@@ -1,19 +1,25 @@
-"""Multi-session striped H.264 lane (counterpart of
+"""Multi-session striped H.264 lane over a mesh (counterpart of
 ``selkies_tpu/parallel/mesh_h264.py``).
 
-Every stripe is an independent video sequence (its own SPS/PPS/IDR chain
-and decoder on the client), so N sessions' stripes fold into one stripe
-axis of N*S stripes: one device step per tick runs the damage test, one
-motion-search launch, the transform, quant and reconstruction, and the
-pack (per ``h264_device.PACK_FRAMES`` sessions), and each session's
-Annex-B equals the JAX lane's.
+Sessions split over the mesh's "session" axis and each frame's height
+over its "stripe" axis on stripe boundaries (split-frame encoding, SFE):
+legal because every stripe is an independent video sequence (its own
+SPS/PPS/IDR chain and decoder on the client), so motion search, the
+reconstruction chain and the pack stay shard-local. Within a shard the
+sessions' stripes fold into one stripe axis: one device step per shard per
+tick runs the damage test, one motion-search launch, the transform, quant
+and reconstruction, and the pack (per ``h264_device.PACK_FRAMES``
+sessions), on the shard's device. The harvest fetches every shard's heads
+and concatenates each session's stripes, in stripe order, into one access
+unit; each session's Annex-B equals the JAX lane's.
 
 IDR handling keeps the step uniform: a joining session must not force
 every session to a keyframe, so the step comes in two flavours — P only,
 and a mixed one that also codes every stripe as Intra16x16 and selects per
 stripe (``h264_device._merge_idr``). The host runs the mixed step only on
 ticks where some stripe needs an IDR (join, reset, resync); IDR stripes
-recover their exact levels from ``flat16`` and are coded on the host.
+recover their exact levels from ``flat16`` and are coded on the host, as
+overflowed stripes are, per shard.
 """
 
 from __future__ import annotations
@@ -28,13 +34,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import encoder_stream
 from ..encoder import device_cavlc as dcav
 from ..encoder import h264_device as dev
 from ..encoder.h264 import (H264Stripe, _entropy_pool, encode_picture_nals_np,
                             make_pps, make_sps)
 from ..encoder.staging import HostCopy
-from .mesh import LaneFrames, Mesh, _stream, fetch_prefix, lane_device
+from .mesh import (LaneFrames, Mesh, _LaneState, fetch_sharded_prefix,
+                   gather, mesh_shards, split_frames)
 
 logger = logging.getLogger("selkies_tpu_torch.parallel.h264")
 
@@ -45,31 +51,48 @@ def make_h264_mesh_step(mesh: Mesh, pad_h: int, pad_w: int, stripe_h: int,
                         *, search: int = dev.SEARCH, cap_frac: int = 4,
                         with_idr: bool = False, prefix: int = 0,
                         entropy: str = "sparse", max_stripe_bytes: int = 0):
-    """The multi-session H.264 step (``h264_device.encode_frame_p_sessions_rgb``
-    with its geometry bound).
+    """The multi-session H.264 step over ``mesh``
+    (``h264_device.encode_frame_p_sessions_rgb`` per shard, with the band's
+    geometry bound).
 
     Returns (fn, s_local): fn(frames, prev_y, prev_cb, prev_cr, ref_y,
-    ref_cb, ref_cr, paint, idr, qp, paint_qp) → (heads [N, prefix],
-    flat16 [N, S, words], prev planes, refs). ``entropy="device"`` packs
-    per-stripe CAVLC P-slice payloads; ``"sparse"`` the block-sparse
+    ref_cb, ref_cr, paint, idr, qp, paint_qp), the tensors as lists of
+    per-shard blocks in the order of :func:`~.mesh.mesh_shards` (frames
+    ``[n_local, h_local, pad_w, 3]``, paint and idr ``[n_local, s_local]``),
+    → per shard (heads [n_local, prefix], flat16 [n_local, s_local, words],
+    prev planes, refs), each shard's run on its device. ``entropy="device"``
+    packs per-stripe CAVLC P-slice payloads; ``"sparse"`` the block-sparse
     levels. ``prefix=0`` keeps the whole buffer."""
-    lane_device(mesh)
-    if pad_h % stripe_h:
-        raise ValueError("pad_h must divide into stripe_h bands")
-    s_local = pad_h // stripe_h
-    step = functools.partial(
-        dev.encode_frame_p_sessions_rgb, pad_h=pad_h, pad_w=pad_w,
+    n_stripe_ax = mesh.shape["stripe"]
+    if pad_h % (n_stripe_ax * stripe_h):
+        raise ValueError("pad_h must divide into stripe_ax × stripe_h bands")
+    h_local = pad_h // n_stripe_ax
+    s_local = h_local // stripe_h
+    shard_step = functools.partial(
+        dev.encode_frame_p_sessions_rgb, pad_h=h_local, pad_w=pad_w,
         n_stripes=s_local, sh=stripe_h, search=search, with_idr=with_idr,
         entropy="device" if entropy == "device" else "sparse",
         cap_frac=cap_frac, max_stripe_bytes=max_stripe_bytes,
         prefix=prefix or None)
+
+    def step(frames, prev_y, prev_cb, prev_cr, ref_y, ref_cb, ref_cr,
+             paint, idr, qp, paint_qp):
+        n = frames[0].shape[0] * mesh.shape["session"]
+        outs = []
+        for sh, *args in zip(mesh_shards(mesh, n, pad_h, stripe_h), frames,
+                             prev_y, prev_cb, prev_cr, ref_y, ref_cb,
+                             ref_cr, paint, idr):
+            with sh.context():
+                outs.append(shard_step(*args, qp, paint_qp))
+        return tuple(list(x) for x in zip(*outs))
+
     return step, s_local
 
 
 @dataclass
 class _MeshH264Pending:
-    fetch: HostCopy               # async copy of the heads [N, prefix]
-    flat16: Any                   # [N, S, words] exact levels (device)
+    fetch: List[HostCopy]         # async copies of each shard's heads
+    flat16: List[Any]             # per shard [n_local, s_local, words]
     idr: np.ndarray               # [N, S] bool — dispatched as IDR
     paint: np.ndarray             # [N, S] bool
     reuse_prev: np.ndarray        # [N] bool
@@ -77,8 +100,13 @@ class _MeshH264Pending:
     key_req: np.ndarray           # [N] keyframe requests made before it
 
 
+#: the plane sets a lane keeps per shard: (name, rows per frame row)
+_PLANES = (("prev_y", 1), ("prev_cb", 2), ("prev_cr", 2),
+           ("ref_y", 1), ("ref_cb", 2), ("ref_cr", 2))
+
+
 class MeshH264Encoder:
-    """N solo striped H.264 encoders collapsed into one step on one card.
+    """N solo striped H.264 encoders collapsed into one step per shard.
 
     Mirrors :class:`~.mesh.MeshStripeEncoder`'s surface (dispatch /
     fetch_ready / harvest, the scheduler's control calls) with the per
@@ -91,15 +119,19 @@ class MeshH264Encoder:
                  paint_over_trigger_frames: int = 15,
                  search: int = dev.SEARCH,
                  entropy: Optional[str] = None) -> None:
-        self.device = lane_device(mesh)
-        self.n_stripe_ax = 1
+        self.n_stripe_ax = mesh.shape["stripe"]
+        if n_sessions % mesh.shape["session"]:
+            raise ValueError(
+                f"{n_sessions} sessions not divisible by session axis "
+                f"{mesh.shape['session']}")
         if stripe_h % MB:
             raise ValueError("stripe_h must be a multiple of 16")
         if width % 2 or height % 2:
             raise ValueError("frame dimensions must be even")
+        band = self.n_stripe_ax * stripe_h
         self.width, self.height = width, height
         self.pad_w = -(-width // MB) * MB
-        self.pad_h = -(-height // stripe_h) * stripe_h
+        self.pad_h = -(-height // band) * band
         self.stripe_h = stripe_h
         self.n_stripes = self.pad_h // stripe_h
         self.n_sessions = n_sessions
@@ -109,16 +141,18 @@ class MeshH264Encoder:
         self.use_paint_over_quality = bool(use_paint_over_quality)
         self.paint_over_trigger = int(paint_over_trigger_frames)
         self.search = search
-        #: the card's one encoder stream: every device call of the lane
-        #: runs on it
-        self.stream = encoder_stream(self.device)
+        self.shards = mesh_shards(mesh, n_sessions, self.pad_h, stripe_h)
+        #: the first shard's device and encoder stream (every shard's work
+        #: enters its own)
+        self.device = self.shards[0].device
+        self.stream = self.shards[0].stream
 
         n = (stripe_h // MB) * (self.pad_w // MB)
         self._shapes = [((n, 2), 2 * n), ((n, 16, 4, 4), 256 * n),
                         ((n, 4, 4), 16 * n), ((n, 2, 2, 2), 8 * n),
                         ((n, 2, 4, 4, 4), 128 * n)]
         self._stripe_words = sum(s for _, s in self._shapes)
-        self.s_local = self.n_stripes
+        self.s_local = self.n_stripes // self.n_stripe_ax
         self._cap_frac = 8
         self._pad_words, self._n_cells, self._cap_cells = \
             dev.sparse_geometry(self._stripe_words, self._cap_frac)
@@ -143,23 +177,22 @@ class MeshH264Encoder:
                 + self.s_local * (self._n_cells // 8)
             self._buf_bytes = self._fixed_bytes \
                 + self._cap_cells * self.s_local * dev.CELL
-            #: per-session fetch prefix over the content-compacted buffer;
-            #: an undershoot falls back to flat16 rows and grows the bucket
+            #: per-(session, shard) fetch prefix over the content-compacted
+            #: buffer; an undershoot falls back to flat16 rows and grows
+            #: the bucket
             self._prefix = self._bucket(
                 self._fixed_bytes + self.s_local * (8 << 10))
 
-        with _stream(self.stream):
-            u8 = dict(dtype=torch.uint8, device=self.device)
-            self._prev_y = torch.zeros(
-                (n_sessions, self.pad_h, self.pad_w), **u8)
-            self._prev_cb = torch.zeros(
-                (n_sessions, self.pad_h // 2, self.pad_w // 2), **u8)
-            self._prev_cr = torch.zeros_like(self._prev_cb)
-            self._ref_y = torch.zeros_like(self._prev_y)
-            self._ref_cb = torch.zeros_like(self._prev_cb)
-            self._ref_cr = torch.zeros_like(self._prev_cr)
-        self._frames = LaneFrames(n_sessions, self.pad_h, self.pad_w,
-                                  self.device, self.stream)
+        self._lanes: List[_LaneState] = []
+        for sh in self.shards:
+            st = _LaneState(sh, LaneFrames(sh.n_sessions, sh.height,
+                                           self.pad_w, sh.device, sh.stream))
+            with sh.context():
+                for name, div in _PLANES:
+                    st.t[name] = torch.zeros(
+                        (sh.n_sessions, sh.height // div, self.pad_w // div),
+                        dtype=torch.uint8, device=sh.device)
+            self._lanes.append(st)
 
         S = self.n_stripes
         self._need_idr = np.ones((n_sessions, S), bool)
@@ -194,12 +227,25 @@ class MeshH264Encoder:
 
     @property
     def n_shards(self) -> int:
-        """Cards one frame's stripe bands span (1: a lane is one card)."""
+        """Devices one frame's stripe bands are sharded across (the SFE
+        stripe axis; 1 = the whole frame on one device)."""
         return self.n_stripe_ax
 
     @property
     def h2d_bytes_total(self) -> int:
-        return self._frames.h2d_bytes_total
+        return sum(st.frames.h2d_bytes_total for st in self._lanes)
+
+    def gathered(self, name: str) -> torch.Tensor:
+        """A copy of one per-session plane of the lane's state, assembled
+        from the shards (``prev_y``, ``prev_cb``, ``prev_cr``, ``ref_y``,
+        ``ref_cb``, ``ref_cr``): for reading only, a write to it reaches
+        no shard."""
+        return gather(self.shards, [st.t[name] for st in self._lanes])
+
+    @property
+    def last_frames(self) -> torch.Tensor:
+        """Each slot's re-present frame [N, pad_h, pad_w, 3] (gathered)."""
+        return gather(self.shards, [st.frames.last for st in self._lanes])
 
     # -- control -----------------------------------------------------------
 
@@ -213,23 +259,27 @@ class MeshH264Encoder:
         """Recycle a slot: fresh history and zeroed planes, so no pixels
         leak across occupants (the inter references would carry them).
         The six plane sets and the re-present frame are zeroed in place on
-        the lane's stream: ticks already in flight read the old planes,
+        each shard's stream: ticks already in flight read the old planes,
         every later tick the zeros."""
         self.force_keyframe(session)
         self._frame_num[session] = 0
         self._withheld[session] = False
-        self._frames.reset(session)
-        with _stream(self.stream):
-            for name in ("_prev_y", "_prev_cb", "_prev_cr",
-                         "_ref_y", "_ref_cb", "_ref_cr"):
-                getattr(self, name)[session].zero_()
+        for st in self._lanes:
+            sh = st.shard
+            if sh.sessions.start <= session < sh.sessions.stop:
+                local = session - sh.sessions.start
+                st.frames.reset(local)
+                with sh.context():
+                    for name, _ in _PLANES:
+                        st.t[name][local].zero_()
 
     # -- helpers -----------------------------------------------------------
 
     def _bucket(self, nbytes: int) -> int:
         """Fetch-prefix bound quantized per stripe: the payload share above
         the fixed head rounds up to s_local × a power-of-two per-stripe
-        budget (≥ 1 KB), capped at the whole buffer."""
+        budget (≥ 1 KB), capped at the whole buffer — growing the stripe
+        axis shrinks s_local instead of multiplying distinct shapes."""
         per = 1 << 10
         need = max(0, int(nbytes) - self._fixed_bytes)
         while per * self.s_local < need:
@@ -254,10 +304,17 @@ class MeshH264Encoder:
     # -- per-tick ----------------------------------------------------------
 
     def dispatch(self, frames) -> _MeshH264Pending:
-        """One step for all sessions; pair with :meth:`harvest`. ``frames``
-        as :meth:`~.mesh.LaneFrames.batch` takes them (None entries
-        re-present the previous frame; damage gating suppresses them)."""
-        batch, reuse_prev = self._frames.batch(frames)
+        """One step per shard for all sessions; pair with :meth:`harvest`.
+        ``frames`` as :meth:`~.mesh.LaneFrames.batch` takes them, for the
+        whole lane (None entries re-present the previous frame; damage
+        gating suppresses them)."""
+        parts = split_frames(self.shards, frames, self.pad_h)
+        batches = []
+        reuse_prev = np.zeros(self.n_sessions, bool)
+        for st, part in zip(self._lanes, parts):
+            b, reuse = st.frames.batch(part)
+            batches.append(b)
+            reuse_prev[st.shard.sessions] = reuse
 
         # a withheld session's client never received the content already
         # sitting in its last frame (whole-frame containment dropped it),
@@ -277,23 +334,28 @@ class MeshH264Encoder:
 
         qp_arr = np.where(paint, self.paint_over_qp, self.qp)
         fn = self._step_for(bool(idr.any()), self._prefix)
-        paint_d = self._frames.upload(paint.astype(np.int32))
-        idr_d = self._frames.upload(idr.astype(np.int32))
-        with _stream(self.stream):
-            (heads, flat16, self._prev_y, self._prev_cb, self._prev_cr,
-             self._ref_y, self._ref_cb, self._ref_cr) = fn(
-                batch, self._prev_y, self._prev_cb, self._prev_cr,
-                self._ref_y, self._ref_cb, self._ref_cr,
-                paint_d, idr_d, self.qp, self.paint_over_qp)
-            fetch = HostCopy(heads, self.stream)
+
+        def blocks(arr):
+            return [st.frames.upload(arr[st.shard.sessions, st.shard.stripes]
+                                     .astype(np.int32)) for st in self._lanes]
+
+        planes = [[st.t[name] for st in self._lanes] for name, _ in _PLANES]
+        heads, flat16, *new = fn(batches, *planes, blocks(paint),
+                                 blocks(idr), self.qp, self.paint_over_qp)
+        fetch = []
+        for i, st in enumerate(self._lanes):
+            for (name, _), t in zip(_PLANES, new):
+                st.t[name] = t[i]
+            with st.shard.context():
+                fetch.append(HostCopy(heads[i], st.shard.stream))
         return _MeshH264Pending(
             fetch=fetch, flat16=flat16, idr=idr, paint=paint,
             reuse_prev=reuse_prev, qp=qp_arr, key_req=self._key_req.copy())
 
     def fetch_ready(self, p: _MeshH264Pending) -> bool:
-        """True when the heads' copy has landed (an event query: never
-        blocks) — the scheduler's in-flight window harvests then."""
-        return p.fetch.ready()
+        """True when every shard's heads copy has landed (event queries:
+        never blocks) — the scheduler's in-flight window harvests then."""
+        return all(f.ready() for f in p.fetch)
 
     def harvest(self, p: _MeshH264Pending
                 ) -> Tuple[List[List[H264Stripe]], np.ndarray]:
@@ -301,12 +363,15 @@ class MeshH264Encoder:
         coded bytes per session). Must be called in dispatch order.
 
         Sets :attr:`last_harvest_stages`, the fetch/concat split of the
-        harvest wall, which the scheduler folds into each frame's trace."""
+        harvest wall with per-shard fetch attribution, which the scheduler
+        folds into each frame's trace."""
         t_h0 = time.perf_counter()
-        host, per_shard_ms = fetch_prefix(p.fetch)
+        # [N, stripe_ax, prefix], copied shard by shard so the D2H wall is
+        # attributable per stripe shard
+        host, per_shard_ms = fetch_sharded_prefix(self.shards, p.fetch)
         self.d2h_bytes_total += host.nbytes
         fetch_ms = sum(per_shard_ms.values())
-        n_s, S = self.n_sessions, self.n_stripes
+        n_s, S, sl = self.n_sessions, self.n_stripes, self.s_local
         CELL = dev.CELL
         cavlc = self.entropy == "device"
 
@@ -315,59 +380,72 @@ class MeshH264Encoder:
         counts = np.zeros((n_s, S), np.int64)
         t_bits = np.zeros((n_s, S), np.int64)
         base_words = np.zeros((n_s, S), np.int64)
-        if cavlc:
-            for n in range(n_s):
-                tb, bw, dmg, ov = dcav.parse_cavlc_head(host[n], S)
-                t_bits[n], base_words[n], damage[n], ovf[n] = tb, bw, dmg, ov
-        else:
-            head = host[:, :4 * S].reshape(n_s, S, 4)
-            # the head keeps the cell count's low 16 bits; a count past
-            # the cap (wrapped or not) comes with the overflow flag
-            counts = head[:, :, 0].astype(np.int64) \
-                + (head[:, :, 1].astype(np.int64) << 8)
-            damage = head[:, :, 2] != 0
-            ovf = head[:, :, 3] != 0
+        for k in range(self.n_stripe_ax):
+            gs = slice(k * sl, (k + 1) * sl)
+            if cavlc:
+                for n in range(n_s):
+                    tb, bw, dmg, ov = dcav.parse_cavlc_head(host[n, k], sl)
+                    t_bits[n, gs] = tb
+                    base_words[n, gs] = bw
+                    damage[n, gs] = dmg
+                    ovf[n, gs] = ov
+            else:
+                head = host[:, k, :4 * sl].reshape(n_s, sl, 4)
+                # the head keeps the cell count's low 16 bits; a count
+                # past the cap (wrapped or not) comes with the overflow
+                # flag
+                counts[:, gs] = head[:, :, 0].astype(np.int64) \
+                    + (head[:, :, 1].astype(np.int64) << 8)
+                damage[:, gs] = head[:, :, 2] != 0
+                ovf[:, gs] = head[:, :, 3] != 0
 
         damage[p.reuse_prev] = False
         emit = damage | p.paint | p.idr
         self._static = np.where(damage, 0, self._static + 1)
         self._painted = np.where(damage, False, self._painted)
 
-        # device-CAVLC payload words or content-compacted sparse cells,
-        # back to back after the fixed head. An undershoot (content past
-        # the fetched prefix), a per-stripe overflow, or an IDR stripe
-        # (its merged intra levels are not P-slice material) recovers from
-        # the exact flat16 rows; their reads start before any blocks
+        # per shard: device-CAVLC payload words or content-compacted sparse
+        # cells, back to back after the fixed head. An undershoot (content
+        # past the fetched prefix), a per-stripe overflow, or an IDR
+        # stripe (its merged intra levels are not P-slice material)
+        # recovers from the exact flat16 rows; their reads start before
+        # any blocks
         used = np.minimum(counts, self._cap_cells) * CELL
         grew = False
         for n in range(n_s):
-            if not emit[n].any():
-                continue
-            if cavlc:
-                # clip to the device's per-stripe word capacity: an
-                # overflow stripe records unclipped t_bits but compacts at
-                # most V words
-                wc = np.minimum((t_bits[n] + 31) // 32,
-                                self._cavlc_msb // 4)
-                needed = self._fixed_bytes \
-                    + 4 * int(base_words[n][-1] + wc[-1])
-            else:
-                needed = self._fixed_bytes + int(used[n].sum())
-            if needed > host.shape[-1]:
-                ovf[n] |= emit[n]
-                if not grew:
-                    self._prefix = self._bucket(needed + needed // 2)
-                    grew = True
+            for k in range(self.n_stripe_ax):
+                gs = slice(k * sl, (k + 1) * sl)
+                if not emit[n, gs].any():
+                    continue
+                if cavlc:
+                    # clip to the device's per-stripe word capacity: an
+                    # overflow stripe records unclipped t_bits but
+                    # compacts at most V words
+                    wc = np.minimum((t_bits[n, gs] + 31) // 32,
+                                    self._cavlc_msb // 4)
+                    needed = self._fixed_bytes \
+                        + 4 * int(base_words[n, gs][-1] + wc[-1])
+                else:
+                    needed = self._fixed_bytes + int(used[n, gs].sum())
+                if needed > host.shape[-1]:
+                    ovf[n, gs] |= emit[n, gs]
+                    if not grew:
+                        self._prefix = self._bucket(needed + needed // 2)
+                        grew = True
         host_path = ovf | (cavlc & p.idr)
         # overflow / prefix-undershoot stripes recovered through the
         # flat16 host coder (IDR resyncs are by construction, not faults)
         self.host_fallback_stripes_total += int((ovf & emit).sum())
+        nl = self.shards[0].n_sessions
         exact: Dict[Tuple[int, int], HostCopy] = {}
-        with _stream(self.stream):
-            for n in range(n_s):
-                for g in range(S):
-                    if emit[n, g] and host_path[n, g]:
-                        exact[(n, g)] = HostCopy(p.flat16[n, g], self.stream)
+        for n in range(n_s):
+            for g in range(S):
+                if emit[n, g] and host_path[n, g]:
+                    i = (n // nl) * self.n_stripe_ax + g // sl
+                    sh = self.shards[i]
+                    with sh.context():
+                        exact[(n, g)] = HostCopy(
+                            p.flat16[i][n % nl, g % sl], sh.stream)
 
         mb_w = self.pad_w // MB
         mb_h = self.stripe_h // MB
@@ -376,11 +454,13 @@ class MeshH264Encoder:
             for g in range(S):
                 if not emit[n, g]:
                     continue
+                k, s = g // sl, g % sl
                 if cavlc and not host_path[n, g]:
                     # the device already coded the stripe; the job is
                     # slice-header glue only
                     pb, nbits = dcav.payload_slice(
-                        host[n], S, base_words[n], t_bits[n], g)
+                        host[n, k], sl, base_words[n, k * sl:(k + 1) * sl],
+                        t_bits[n, k * sl:(k + 1) * sl], s)
                     jobs.append((n, g, False, int(p.qp[n, g]),
                                  ("bits", pb, nbits)))
                     continue
@@ -391,14 +471,15 @@ class MeshH264Encoder:
                     row = row16.astype(np.int32)
                     rf_ms = (time.perf_counter() - t_rf) * 1000.0
                     fetch_ms += rf_ms
-                    per_shard_ms[0] = per_shard_ms.get(0, 0.0) + rf_ms
+                    per_shard_ms[k] = per_shard_ms.get(k, 0.0) + rf_ms
                 else:
-                    bitmap = host[n, 4 * S:self._fixed_bytes] \
-                        .reshape(S, self._n_cells // 8)[g]
+                    bitmap = host[n, k, 4 * sl:self._fixed_bytes] \
+                        .reshape(sl, self._n_cells // 8)[s]
                     bits = np.unpackbits(bitmap, bitorder="little")
                     idx = np.flatnonzero(bits[:self._n_cells])
-                    start = self._fixed_bytes + int(used[n, :g].sum())
-                    cells = host[n, start:start + used[n, g]] \
+                    start = self._fixed_bytes \
+                        + int(used[n, k * sl:g].sum())
+                    cells = host[n, k, start:start + used[n, g]] \
                         .view(np.int8).astype(np.int32).reshape(-1, CELL)
                     dense = np.zeros(self._pad_words, np.int32)
                     dense.reshape(-1, CELL)[idx[:len(cells)]] = cells
@@ -409,7 +490,6 @@ class MeshH264Encoder:
                     pos += size
                 jobs.append((n, g, bool(p.idr[n, g]), int(p.qp[n, g]),
                              ("levels", parts)))
-
         def run_one(job):
             n, g, is_key, qp, work = job
             if work[0] == "bits":
@@ -492,7 +572,9 @@ class MeshH264Encoder:
         self.last_harvest_stages = {
             "fetch_ms": fetch_ms,
             "concat_ms": max(0.0, total_ms - fetch_ms),
-            "per_shard_fetch_ms": [round(per_shard_ms.get(0, 0.0), 3)],
+            "per_shard_fetch_ms": [
+                round(per_shard_ms.get(k, 0.0), 3)
+                for k in range(self.n_stripe_ax)],
         }
         return out, coded
 

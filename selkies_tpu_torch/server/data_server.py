@@ -1690,12 +1690,15 @@ class DataStreamingServer:
                 # injector at the scheduler's sites
                 coord.faults = self.faults
                 self.mesh_coordinators[geom] = coord
+                sfe_n = int(getattr(coord, "sfe_shards", 1) or 1)
                 logger.info(
                     "lanes: %s → %s session slots/lane (max %s lanes) at "
-                    "%dx%d (bucket %d)", spec,
+                    "%dx%d (bucket %d)%s", spec,
                     getattr(coord, "slots_per_lane", "?"),
                     getattr(coord, "max_lanes", "?"), st.width, st.height,
-                    len(self.mesh_coordinators))
+                    len(self.mesh_coordinators),
+                    f" — SFE lanes, {sfe_n} stripe shards/frame"
+                    if sfe_n > 1 else "")
             except Exception:
                 logger.exception(
                     "lane scheduler for %dx%d (%s) unavailable; that "
@@ -1895,8 +1898,9 @@ class DataStreamingServer:
                     cs.get("worker_restarts_total", 0),
                 "inflight_batches": cs.get("inflight_batches", 0),
                 "migrations_total": cs.get("migrations_total", 0),
-                # a lane spans one card (no split-frame encoding)
-                "sfe_shards": 1,
+                # SFE lanes: devices one frame spans, and the host-side
+                # slice-concat share of the harvest wall
+                "sfe_shards": cs.get("sfe_shards", 1),
                 "sfe_concat_ms_p50": cs.get("sfe_concat_ms_p50", 0.0),
                 "lane_detail": cs.get("lane_detail", []),
             }
@@ -2088,8 +2092,20 @@ class DataStreamingServer:
                             sched["quarantined_slots"]
                     net["mesh_migrations_total"] = sum(
                         c.migrations_total for c in coords)
+                    # one stats() snapshot per scheduler per tick (it takes
+                    # the scheduler lock): SFE and the gauges share it
+                    coord_stats = [c.stats() for c in coords]
+                    # SFE lanes: shard count and slice-concat wall ride the
+                    # stats feed and the gauges
+                    sfe_stats = [cs for cs in coord_stats
+                                 if cs.get("sfe_shards", 1) > 1]
+                    if sfe_stats:
+                        net["mesh_sfe_shards"] = max(
+                            cs["sfe_shards"] for cs in sfe_stats)
+                        net["mesh_sfe_concat_ms_p50"] = max(
+                            cs.get("sfe_concat_ms_p50", 0.0)
+                            for cs in sfe_stats)
                     if self.metrics is not None:
-                        coord_stats = [c.stats() for c in coords]
                         self.metrics.set_mesh_health(
                             active_sessions=net["mesh_sessions"],
                             lanes=net.get("mesh_lanes", 0),
@@ -2101,9 +2117,10 @@ class DataStreamingServer:
                             worker_restarts=net["mesh_worker_restarts"],
                             quarantined=net.get("mesh_quarantined_slots", 0),
                             migrations=net["mesh_migrations_total"])
-                        # a lane spans one card (no split-frame encoding)
-                        self.metrics.set_sfe_health(shards=0,
-                                                    concat_ms_p50=0.0)
+                        self.metrics.set_sfe_health(
+                            shards=net.get("mesh_sfe_shards", 0),
+                            concat_ms_p50=net.get(
+                                "mesh_sfe_concat_ms_p50", 0.0))
                 edge = self.edge_stats
                 if (edge["protocol_errors"] or edge["rate_limited"]
                         or edge["sessions_rejected"]

@@ -951,3 +951,147 @@ def test_webrtc_session_on_card_equals_cpu(cuda_device):
     idr = [k for k, (au, _) in enumerate(got) if b"\x00\x00\x00\x01\x65" in au
            or b"\x00\x00\x01\x65" in au]
     assert idr == [0, 8]
+
+
+# ---------------------------------------------------------------------------
+# several devices: launches on a device that is not current, lanes and
+# split-frame encoding over a mesh of two shards
+
+
+def _device_or_skip(which: str) -> torch.device:
+    """The device a kernel is launched on while cuda:0 is current: the
+    last card ("last"; cuda:0 itself with one card, the shard-on-cuda:0
+    case), or the second card ("second"), which one card cannot give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    n = torch.cuda.device_count()
+    if which == "second" and n < 2:
+        pytest.skip("needs a second card: a kernel launched on cuda:1 "
+                    "while cuda:0 is current is unchecked with one")
+    return torch.device("cuda", n - 1)
+
+
+@pytest.mark.parametrize("which", ["last", "second"])
+def test_kernels_on_a_device_that_is_not_current(which):
+    """Both kernels launched on the last card while cuda:0 is current
+    equal their plain versions exactly, and each launch is counted on
+    that card's entry of ``launches_by_device``."""
+    dev = _device_or_skip(which)
+    rng = np.random.default_rng(3)
+    plane = torch.from_numpy(
+        rng.uniform(0, 255, (64, 128)).astype(np.float32)).to(dev)
+    recip = torch.from_numpy(_recips()).to(dev)
+    row = torch.from_numpy((np.arange(8) % 2).astype(np.int32)).to(dev)
+    cur = torch.from_numpy(rng.integers(0, 256, (2, 32, 64), np.uint8))
+    ref = torch.roll(cur, 3, dims=2)
+    args = [cur, ref] + [torch.from_numpy(rng.integers(
+        0, 256, (2, 16, 32), np.uint8)) for _ in range(2)]
+    args = [t.to(dev) for t in args]
+    torch.cuda.synchronize(dev)
+    d0 = dict(dct8_quant_zigzag.launches_by_device)
+    m0 = dict(me_mc_stripes.launches_by_device)
+    with torch.cuda.device(0):
+        (got,) = dct8_quant_zigzag([(plane, recip, row)])
+        mv = me_mc_stripes(*args, search=4)
+    want = dct8_quant_zigzag_plain(plane, recip, row)
+    assert torch.equal(got, want)
+    for g, w in zip(mv, full_search_mc(*args, search=4)):
+        assert torch.equal(g, w)
+    key = str(dev)
+    assert dct8_quant_zigzag.launches_by_device[key] == d0.get(key, 0) + 1
+    assert me_mc_stripes.launches_by_device[key] == m0.get(key, 0) + 1
+
+
+def _mesh_devices():
+    n = torch.cuda.device_count()
+    return ["cuda:0", "cuda:1"] if n >= 2 else ["cuda:0", "cuda:0"]
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "h264-device"])
+@pytest.mark.parametrize("spec", ["session:2", "session:1,stripe:2"])
+def test_lane_over_two_shards_equals_one_device(cuda_device, kind, spec):
+    """The lane script through a lane over two shards (two cards, or both
+    on cuda:0) equals the one-device lane, tick by tick; every tick
+    launches the profile's kernel once per shard, counted by device."""
+    from selkies_tpu_torch.parallel.mesh import (Mesh, MeshStripeEncoder,
+                                                 parse_mesh_spec)
+    from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder
+
+    devs = [torch.device(d) for d in _mesh_devices()]
+    two = parse_mesh_spec(spec, devs)
+    one = Mesh([[devs[0]]])
+    if kind == "jpeg":
+        make = lambda m: MeshStripeEncoder(m, LANE_N, LANE_W, LANE_H,  # noqa
+                                           stripe_h=32)
+    else:
+        make = lambda m: MeshH264Encoder(m, LANE_N, LANE_W, LANE_H,  # noqa
+                                         stripe_h=32)
+    want = _lane_drive(make(one), 2)
+    counter = dct8_quant_zigzag if kind == "jpeg" else me_mc_stripes
+    lane = make(two)
+    before = dict(counter.launches_by_device)
+    got = _lane_drive(lane, 2)
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    for k, ((wo, wb), (go, gb)) in enumerate(zip(want, got)):
+        assert _lane_bytes(go) == _lane_bytes(wo), k
+        assert list(gb) == list(wb), k
+    assert len(got) == len(_lane_script())
+    added = {d: n - before.get(d, 0)
+             for d, n in counter.launches_by_device.items()}
+    assert sum(added.values()) == 2 * len(_lane_script())
+    assert all(added.get(str(d), 0) > 0 for d in set(devs))
+
+
+def test_served_sfe_display_leaves_no_thread():
+    """A 256x256 JPEG display served from a split-frame lane over two
+    shards (two cards, or both on cuda:0): frames arrive, the health feed
+    reports two shards, and once the display and the server stop no
+    ``torchenc*``, ``mesh-encode`` or ``selkies-*`` thread is alive."""
+    import asyncio
+    import functools
+    import json
+    import threading
+    import time
+
+    from selkies_tpu_torch.parallel.coordinator import MeshEncodeCoordinator
+    from selkies_tpu_torch.robustness import InProcessClient
+    from selkies_tpu_torch.server.data_server import DataStreamingServer
+    from selkies_tpu_torch.settings import Settings
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+    async def run():
+        server = DataStreamingServer(Settings(argv=[], env={
+            "SELKIES_PORT": "0", "SELKIES_ENCODER": "jpeg",
+            "SELKIES_TPU_MESH": "session:1,stripe:2",
+            "SELKIES_TPU_SESSIONS_PER_CHIP": "1"}), device="cuda")
+        server.coordinator_factory = functools.partial(
+            MeshEncodeCoordinator, devices=_mesh_devices())
+        ws = InProcessClient()
+        task = asyncio.create_task(server.ws_handler(ws))
+        ws.feed("SETTINGS," + json.dumps({
+            "displayId": "primary", "initialClientWidth": 256,
+            "initialClientHeight": 256, "framerate": 30}))
+        deadline = time.monotonic() + 60.0
+        while len([m for m in ws.sent if isinstance(m, bytes)]) < 8:
+            assert time.monotonic() < deadline
+            await asyncio.sleep(0.01)
+        mesh = json.loads(server._health_payload())["mesh"]
+        await ws.close()
+        await asyncio.wait_for(task, 30.0)
+        await server.stop()
+        return mesh
+
+    mesh = asyncio.run(run())
+    assert mesh["256x256/jpeg"]["sfe_shards"] == 2
+    deadline = time.monotonic() + 10.0
+    prefixes = ("torchenc", "mesh-encode", "selkies-")
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.is_alive() and t.name.startswith(prefixes)]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert left == []

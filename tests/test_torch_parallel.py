@@ -251,7 +251,7 @@ def test_h264_lane_reference_planes_equal_jax(h264_runs):
     _, jenc, tenc, _ = h264_runs
     for name in ("_prev_y", "_prev_cb", "_prev_cr",
                  "_ref_y", "_ref_cb", "_ref_cr"):
-        assert np.array_equal(getattr(tenc, name).numpy(),
+        assert np.array_equal(tenc.gathered(name[1:]).numpy(),
                               np.asarray(getattr(jenc, name))), name
 
 
@@ -367,9 +367,9 @@ def test_reset_slot_leaks_nothing_to_the_next_occupant(port_mesh, profile):
     out_b, _ = lane.harvest(second)
     assert len(out_a[1]) == S and out_b[1]          # the old occupant coded
     for name in planes:
-        t = getattr(lane, name)
+        t = lane.gathered(name[1:])
         assert not t[1].any() and t[0].any(), name
-    assert not lane._frames.last[1].any()
+    assert not lane.last_frames[1].any()
     idle, _ = lane.encode_frames([np.roll(old[0], 2, axis=1), None,
                                   np.roll(old[2], 2, axis=1), None])
     assert idle[1] == []
@@ -387,17 +387,33 @@ def test_reset_slot_leaks_nothing_to_the_next_occupant(port_mesh, profile):
 # launches, devices, specs
 
 
-def test_lanes_refuse_a_mesh_over_several_devices():
-    """A stripe axis (split-frame encoding) or a session axis across
-    devices is not ported: the lane encoders raise, naming the ROADMAP
-    item, instead of running one shard."""
+@pytest.mark.parametrize("profile", ["jpeg", "x264enc-striped"])
+@pytest.mark.parametrize("spec", ["session:1,stripe:2", "session:2"])
+def test_lanes_over_two_devices_equal_one_device(spec, profile):
+    """A stripe axis (split-frame encoding) or a session axis over two
+    devices: both lane encoders build over two CPU devices, and every
+    session's bytes equal the one-device lane's, tick by tick (a join
+    keyframe, motion, an idle slot, a static tick, one changed stripe)."""
     cpu = torch.device("cpu")
-    for spec in ("session:1,stripe:2", "session:2"):
-        mesh = tmesh.parse_mesh_spec(spec, [cpu, cpu])
-        for make in (lambda: tmesh.MeshStripeEncoder(mesh, 2, W, H),
-                     lambda: tmesh_h264.MeshH264Encoder(mesh, 2, W, H)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                make()
+    two = tmesh.parse_mesh_spec(spec, [cpu, cpu])
+    one = tmesh.parse_mesh_spec("session:1", [cpu])
+    if profile == "jpeg":
+        make, of = tmesh.MeshStripeEncoder, _jpeg_of
+    else:
+        make, of = tmesh_h264.MeshH264Encoder, _h264_of
+    lanes = [make(m, 2, W, H, stripe_h=SH, paint_over_trigger_frames=2)
+             for m in (one, two)]
+    assert lanes[1].n_shards == (2 if "stripe" in spec else 1)
+    a, b = _content(41), _content(42)
+    a2 = np.roll(a, 4, axis=0)
+    b2 = b.copy()
+    b2[H // 2:H // 2 + SH] = _content(43)[:SH]
+    for t, frames in enumerate([[a, b], [a2, None], [a2, b], [a2, b2],
+                                [a2, b2]]):
+        want, wbytes = lanes[0].encode_frames(frames)
+        got, gbytes = lanes[1].encode_frames(frames)
+        assert of(got) == of(want), t
+        assert list(gbytes) == list(wbytes), t
 
 
 SPECS = ["session:4,stripe:2", "session:8", "session:64", "tensor:2",

@@ -534,23 +534,30 @@ def test_submit_seq_accounts_for_inflight_window():
 
 
 def test_worker_thread_runs_with_the_lane_stream_current(monkeypatch):
-    """The worker issues the lanes' device work, so it enters the card's
-    encoder stream (a no-op for injected lanes and on the CPU)."""
-    entered = []
+    """The worker issues the lanes' device work, so every tick runs inside
+    its scheduler's stream context (its mesh's first device and that
+    device's encoder stream; a no-op for injected lanes and on the CPU),
+    entered per tick, not once per thread."""
+    inside = {"now": False}
+    ticks = []
     coord = make_coord(slots_per_lane=1, max_lanes=1)
     try:
         class _Ctx:
             def __enter__(self):
-                entered.append(True)
+                inside["now"] = True
 
             def __exit__(self, *exc):
+                inside["now"] = False
                 return False
 
         coord.stop()
         monkeypatch.setattr(coord, "_stream_context", lambda: _Ctx())
+        tick = coord._tick
+        monkeypatch.setattr(
+            coord, "_tick", lambda: (ticks.append(inside["now"]), tick()))
         f = coord.acquire(64, 48)
         assert pump_until(lambda: False, [f], timeout=0.3)[0] > 0
-        assert entered == [True]
+        assert len(ticks) > 1 and all(ticks)
     finally:
         coord.stop()
 
