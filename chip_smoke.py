@@ -105,12 +105,22 @@ flat over two more start/stop cycles. The motion kernel is held against
 its plain version at the WebRTC entry point's default 1280x720 stripe
 too.
 
+The harnesses (``selkies_tpu_torch/tools/``): ``harnesses`` runs the
+CAVLC fuzzer's device mode on the card (random geometries, and the 1080p
+striped and full-frame shapes with the served encoder's stripe
+capacity: every unflagged stripe bit-exact, every overflow flagged), a
+1080p fault storm of chaos_run solo, on a lane and on an SFE lane of two
+shards (alive, no span or slot leaked, the JPEG kernel launched during
+each, by device for SFE), and swarm_run over the port's real lane
+encoders (leak-free, its sick slot's session migrated, no cohabitant
+stalled).
+
 It prints one JSON object per line (setup, server_resize, server_edge,
-webrtc as they end, then kernels, encoder, h264_encoder,
-h264_fullframe_encoder, host_rung, server, server_h264, server_fullframe,
-h264_batch, server_h264_batch, server_faults, mesh_encoder, server_mesh,
-jpeg_device_frames, encoder_churn, h264_cross, profile, profile_h264,
-profile_fullframe, server_trace, total),
+webrtc and the harnesses' parts as they end, then kernels, encoder,
+h264_encoder, h264_fullframe_encoder, host_rung, server, server_h264,
+server_fullframe, h264_batch, server_h264_batch, server_faults,
+mesh_encoder, server_mesh, jpeg_device_frames, encoder_churn, h264_cross,
+profile, profile_h264, profile_fullframe, server_trace, total),
 the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 Without a CUDA device, or without the package beside it, it exits
@@ -3998,6 +4008,178 @@ def phase_webrtc():
     }, launches
 
 
+#: harnesses: cavlc_fuzz's device mode over HARNESS_CAVLC_SEEDS seeds at
+#: the tool's random geometries, then seeds at the 1080p shape of each
+#: H.264 profile's encoder (its stripes and its stripe capacity)
+HARNESS_CAVLC_SEEDS = 300
+HARNESS_CAVLC_1080P = (("x264enc-striped", 20), ("x264enc", 10))
+#: chaos_run: one storm of each mode at W x H, by seed. Seed 0's SFE storm
+#: carries the owner's STOP_VIDEO in its first garbage burst (0.6 s in)
+#: and draws no ws.drop after it, so no capture-side fault of it can fire
+#: (the display captures nothing until the recovery presses play); seed 2
+#: draws capture.raise, ws.drop and encode.raise in each mode and stops
+#: no video
+HARNESS_CHAOS_S = 8.0
+HARNESS_CHAOS_FPS = 30.0
+HARNESS_CHAOS_SEEDS = {"solo": 0, "mesh": 0, "sfe": 2}
+#: swarm_run: tests/test_swarm.py's smoke, on the port's lane encoders
+HARNESS_SWARM = {"n_clients": 32, "duration_s": 3.0, "seed": 1,
+                 "concurrency": 12, "fps": 15.0, "slots_per_lane": 4,
+                 "max_lanes": 2, "sick_slot": True}
+
+
+def _harness_cavlc() -> dict:
+    """cavlc_fuzz's device mode on the card: every stripe that is not
+    flagged must equal the native coder bit for bit, every overflowed one
+    must be flagged (the tool checks both). At the 1080p shapes the pack
+    gets the stripe capacity the served encoder gives it."""
+    from selkies_tpu_torch.encoder.h264 import H264StripeEncoder
+    from selkies_tpu_torch.tools.cavlc_fuzz import check_device_seed
+
+    t0 = time.perf_counter()
+    runs = [("random", HARNESS_CAVLC_SEEDS, {"S": 2})]
+    for profile, n in HARNESS_CAVLC_1080P:
+        enc = H264StripeEncoder(W, H, stripe_height=STRIPE,
+                                fullframe=profile == "x264enc", device=DEVICE)
+        runs.append((profile, n, {
+            "mb_w": enc.pad_w // 16, "mb_h": enc.stripe_h // 16,
+            "S": enc.n_stripes, "max_stripe_bytes": enc._cavlc_msb}))
+        del enc
+    out, fails = {}, []
+    for name, n, geom in runs:
+        compared = flagged = 0
+        for seed in range(n):
+            ok, why, ovf = check_device_seed(seed, device=DEVICE, **geom)
+            if not ok:
+                fails.append(f"{name} seed {seed}: {why}")
+            compared += geom["S"] - ovf
+            flagged += ovf
+        out[name] = {"seeds": n, **geom, "stripes_bit_exact": compared,
+                     "stripes_flagged_overflow": flagged}
+    check(not fails, f"harnesses: cavlc_fuzz failed: {fails[:5]}")
+    return {"phase": "harnesses/cavlc_fuzz", "gpu": CARD.get("name_power"),
+            "seeds": sum(n for _, n, _ in runs), "failures": len(fails),
+            "stripes_bit_exact": sum(v["stripes_bit_exact"]
+                                     for v in out.values()),
+            "stripes_flagged_overflow": sum(v["stripes_flagged_overflow"]
+                                            for v in out.values()),
+            "by_geometry": out, "seconds": time.perf_counter() - t0}
+
+
+def _harness_chaos(mode: str, devs) -> tuple:
+    """One chaos_session storm at W x H on the card: solo, on a lane
+    (``mesh``) or on an SFE lane of two stripe shards on ``devs``
+    (``sfe``). Checks tests/test_robustness.py's chaos assertions, and
+    that the served profile's kernel (dct8: the JPEG profile, on every
+    rung and lane) launched during the storm beyond the tool's one
+    warm-up frame, on every shard's device for ``sfe``. Launches counted
+    from 0 just before, read just after."""
+    import torch
+
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.ops.me_mc import me_mc_stripes
+    from selkies_tpu_torch.tools.chaos_run import chaos_session
+
+    kw = {"mesh": {"mesh": True},
+          "sfe": {"sfe": True, "devices": devs}}.get(mode, {})
+    reserved0 = _reserved_mb()
+    t0 = time.perf_counter()
+    _zero_counts()
+    rep = asyncio.run(chaos_session(
+        duration_s=HARNESS_CHAOS_S, seed=HARNESS_CHAOS_SEEDS[mode], width=W,
+        height=H, fps=HARNESS_CHAOS_FPS, device=DEVICE, **kw))
+    _sync(devs)
+    launches = dct8_quant_zigzag.launches
+    by_dev = {str(d): n for d, n in
+              dct8_quant_zigzag.launches_by_device.items()}
+    wall = time.perf_counter() - t0
+    name = f"chaos:{mode}"
+    check(rep["alive"], f"{name}: not alive: {rep}")
+    check(bool(rep["injected"]), f"{name}: no fault injected")
+    check(rep["failed_displays"] == 0, f"{name}: a display failed")
+    check(rep["restarts"] + rep["watchdog_restarts"] + rep["reconnects"]
+          >= 1, f"{name}: no restart, watchdog restart or reconnect: {rep}")
+    check(rep["frames_delivered"] > 0, f"{name}: no frame delivered")
+    check(me_mc_stripes.launches == 0, f"{name}: the JPEG path ran me_mc")
+    check(DEVICE != "cuda" or launches > 1, f"{name}: {launches} dct8 "
+          "launches (1 is the tool's warm-up frame)")
+    if mode == "sfe":
+        check(rep["mesh_sfe_shards"] == 2,
+              f"{name}: {rep['mesh_sfe_shards']} shards")
+        for d in set(devs) - {"cpu"}:
+            check(by_dev.get(str(torch.device(d)), 0) > (d == devs[0]),
+                  f"{name}: no dct8 launch on {d} in the storm ({by_dev})")
+    return {"phase": f"harnesses/{name}", "gpu": CARD.get("name_power"),
+            "width": W, "height": H, "fps": HARNESS_CHAOS_FPS,
+            "devices": devs if mode == "sfe" else [DEVICE],
+            "dct8_launches": launches, "dct8_launches_by_device": by_dev,
+            "reserved_mb_before": reserved0,
+            "reserved_mb_after": _reserved_mb(), "seconds": wall,
+            "report": rep}, (by_dev if mode == "sfe" else launches)
+
+
+def _harness_swarm() -> tuple:
+    """swarm_run with the port's real lane encoders on the card: the
+    tier-1 smoke's storm with a sick slot. Checks tests/test_swarm.py's
+    assertions; launches counted from 0 just before, read just after."""
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+    from selkies_tpu_torch.tools.swarm_run import swarm_run
+
+    reserved0 = _reserved_mb()
+    t0 = time.perf_counter()
+    _zero_counts()
+    rep = asyncio.run(swarm_run(encoder="real", device=DEVICE,
+                                **HARNESS_SWARM))
+    _sync([DEVICE])
+    launches = dct8_quant_zigzag.launches
+    wall = time.perf_counter() - t0
+    check(rep["swarm_clients"] >= HARNESS_SWARM["n_clients"],
+          f"swarm: {rep['swarm_clients']} clients")
+    check(rep["leaked_slots"] == 0, f"swarm: leaked slots: {rep}")
+    check(rep["trace_open_spans"] == 0, f"swarm: open spans: {rep}")
+    check(rep["slot_accounting_violations"] == [], f"swarm: {rep}")
+    check(rep["victim_migrated"] is True, f"swarm: no migration: {rep}")
+    check(rep["cohabitants_stalled"] == 0, f"swarm: stalled: {rep}")
+    check(rep["quarantined_slots"] + rep.get("migrations", 0) >= 1,
+          f"swarm: {rep}")
+    check(rep["frames_delivered_total"] > 0, f"swarm: no frames: {rep}")
+    check(rep["alive"] is True, f"swarm: not alive: {rep}")
+    check(DEVICE != "cuda" or launches > 0,
+          "swarm: the real lanes never launched dct8")
+    return {"phase": "harnesses/swarm:real", "gpu": CARD.get("name_power"),
+            "sessions_per_chip": rep["sessions_per_chip"],
+            "fairness_jain_index": rep["fairness_jain_index"],
+            "eviction_ms_p95": rep["eviction_ms_p95"],
+            "dct8_launches": launches, "reserved_mb_before": reserved0,
+            "reserved_mb_after": _reserved_mb(), "seconds": wall,
+            "report": rep}, launches
+
+
+def phase_harnesses():
+    """The port's harnesses (selkies_tpu_torch/tools/) on the card: the
+    CAVLC fuzzer's device mode, a 1080p fault storm of each chaos mode and
+    a swarm over real lanes, each part printing its line as it ends.
+    Every part closes what it opened (the tools stop their servers in
+    their own ``finally``); no port thread may be left after the phase.
+    Returns the phase's line and the launches by path."""
+    t0 = time.perf_counter()
+    devs = _md_devices()[0]
+    lines = [_harness_cavlc()]
+    emit(lines[-1])
+    launches = {}
+    for mode in ("solo", "mesh", "sfe"):
+        line, launches[f"chaos:{mode}"] = _harness_chaos(mode, devs)
+        check_no_port_threads(f"harnesses/chaos:{mode}")
+        lines.append(line)
+        emit(line)
+    line, launches["swarm:real"] = _harness_swarm()
+    check_no_port_threads("harnesses/swarm:real")
+    emit(line)
+    return {"phase": "harnesses", "gpu": CARD.get("name_power"),
+            "parts": [ln["phase"] for ln in lines + [line]],
+            "seconds": time.perf_counter() - t0}, launches
+
+
 #: h264_cross: the encoder configurations held card against CPU
 CROSS_CONFIGS = {
     "x264enc-striped": dict(stripe_height=STRIPE, entropy="device"),
@@ -4704,6 +4886,12 @@ def run_phases() -> int:
           f"{webrtc['p_frames_sent']} P frames sent")
     kern_me["launches_by_path"]["webrtc:onestripe"] = webrtc_launches
     kern["launches_by_path"]["webrtc:onestripe"] = webrtc["dct8_launches"]
+    # the harnesses: each storm's counts from 0 just before it, read just
+    # after (chaos:<mode>, swarm:real)
+    _settle("harnesses")
+    harnesses, harness_launches = phase_harnesses()
+    emit(harnesses)
+    kern["launches_by_path"].update(harness_launches)
     enc.update(phase_small_reference())
     cross = phase_h264_cross()
     _settle("profile")

@@ -280,3 +280,65 @@ def dequant_dc2(levels: torch.Tensor, qpc: QP) -> torch.Tensor:
     f = _h2_2d(levels.to(torch.int32))
     v00, qd6 = _params(_V00, qpc, levels)
     return (((f * (v00 * 16)) << qd6) >> 5).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# numpy mirror (a test oracle: an independent, readable decoder-side model)
+
+# the Hadamard matrices of the mirror's DC dequantizers
+_H4 = np.array([[1, 1, 1, 1],
+                [1, 1, -1, -1],
+                [1, -1, -1, 1],
+                [1, -1, 1, -1]], np.int32)
+
+_H2 = np.array([[1, 1], [1, -1]], np.int32)
+
+
+class NumpyMirror:
+    """Pure-numpy decoder-side reference for the ops above (the JAX
+    package's ``NumpyMirror``, verbatim)."""
+
+    @staticmethod
+    def inverse_dct4(d):
+        # §8.5.12.2 verbatim: horizontal (along j) then vertical (along i)
+        d = d.astype(np.int64)
+        e = np.empty_like(d)
+        e[..., :, 0] = d[..., :, 0] + d[..., :, 2]
+        e[..., :, 1] = d[..., :, 0] - d[..., :, 2]
+        e[..., :, 2] = (d[..., :, 1] >> 1) - d[..., :, 3]
+        e[..., :, 3] = d[..., :, 1] + (d[..., :, 3] >> 1)
+        f = np.empty_like(d)
+        f[..., :, 0] = e[..., :, 0] + e[..., :, 3]
+        f[..., :, 1] = e[..., :, 1] + e[..., :, 2]
+        f[..., :, 2] = e[..., :, 1] - e[..., :, 2]
+        f[..., :, 3] = e[..., :, 0] - e[..., :, 3]
+        g = np.empty_like(f)
+        g[..., 0, :] = f[..., 0, :] + f[..., 2, :]
+        g[..., 1, :] = f[..., 0, :] - f[..., 2, :]
+        g[..., 2, :] = (f[..., 1, :] >> 1) - f[..., 3, :]
+        g[..., 3, :] = f[..., 1, :] + (f[..., 3, :] >> 1)
+        r = np.empty_like(g)
+        r[..., 0, :] = g[..., 0, :] + g[..., 3, :]
+        r[..., 1, :] = g[..., 1, :] + g[..., 2, :]
+        r[..., 2, :] = g[..., 1, :] - g[..., 2, :]
+        r[..., 3, :] = g[..., 0, :] - g[..., 3, :]
+        return (r + 32) >> 6
+
+    @staticmethod
+    def dequant4(levels, qp):
+        return (levels.astype(np.int64) * V_TABLE[qp % 6]) << (qp // 6)
+
+    @staticmethod
+    def dequant_dc16(levels, qp):
+        f = np.einsum("ij,...jk,lk->...il", _H4, levels.astype(np.int64), _H4)
+        ls = V_TABLE[qp % 6, 0, 0] * 16
+        if qp >= 36:
+            return (f * ls) << (qp // 6 - 6)
+        s = 6 - qp // 6
+        return (f * ls + (1 << (s - 1))) >> s
+
+    @staticmethod
+    def dequant_dc2(levels, qpc):
+        f = np.einsum("ij,...jk,lk->...il", _H2, levels.astype(np.int64), _H2)
+        ls = V_TABLE[qpc % 6, 0, 0] * 16
+        return ((f * ls) << (qpc // 6)) >> 5

@@ -1095,3 +1095,17 @@ def test_served_sfe_display_leaves_no_thread():
             break
         time.sleep(0.05)
     assert left == []
+
+
+def test_cavlc_fuzz_device_mode_on_the_card(cuda_device):
+    """The CAVLC fuzzer's device mode with the pack on the card: 50 seeds
+    at the tool's random geometries, every unflagged stripe bit-identical
+    to the native coder and every overflowed one flagged (tolerance 0)."""
+    from selkies_tpu_torch.tools.cavlc_fuzz import check_device_seed
+
+    fails = []
+    for seed in range(50):
+        ok, why, _ = check_device_seed(seed, device=cuda_device)
+        if not ok:
+            fails.append((seed, why))
+    assert fails == []

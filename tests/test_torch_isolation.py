@@ -1,4 +1,6 @@
-"""The port stands alone: no jax, no selkies_tpu, and no quiet CPU fallback."""
+"""The port stands alone: no jax, no selkies_tpu, nothing of the
+repository's top-level ``tools`` (the harnesses that drive the JAX
+package), and no quiet CPU fallback."""
 
 import ast
 import pathlib
@@ -19,8 +21,8 @@ def _port_files():
 
 
 def _forbidden(name: str) -> bool:
-    return (name == "jax" or name.startswith("jax.")
-            or name == "selkies_tpu" or name.startswith("selkies_tpu."))
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "selkies_tpu", "tools"))
 
 
 def test_scan_covers_the_webrtc_mode():
@@ -33,6 +35,15 @@ def test_scan_covers_the_webrtc_mode():
         f"selkies_tpu_torch/server/{m}.py"
         for m in ("webrtc_app", "webrtc_main")}
     assert want <= names
+
+
+def test_scan_covers_the_harnesses():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {f"selkies_tpu_torch/tools/{m}.py" for m in (
+        "proto_fuzz", "chaos_run", "swarm_run", "cavlc_fuzz")} <= names
+    from selkies_tpu_torch.ops.h264_transform import NumpyMirror
+
+    assert NumpyMirror.__module__ == "selkies_tpu_torch.ops.h264_transform"
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -59,6 +70,7 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['selkies_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
         "import selkies_tpu_torch\n"
         "import selkies_tpu_torch.__main__\n"
         "import selkies_tpu_torch.server.main\n"
@@ -93,6 +105,11 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "import selkies_tpu_torch.webrtc.media\n"
         "import selkies_tpu_torch.server.webrtc_app\n"
         "import selkies_tpu_torch.server.webrtc_main\n"
+        "import selkies_tpu_torch.tools.proto_fuzz\n"
+        "import selkies_tpu_torch.tools.chaos_run\n"
+        "import selkies_tpu_torch.tools.swarm_run\n"
+        "import selkies_tpu_torch.tools.cavlc_fuzz\n"
+        "from selkies_tpu_torch.ops.h264_transform import NumpyMirror\n"
         "from selkies_tpu_torch.server import bundled_web_root\n"
         "assert bundled_web_root() is not None\n"
         "from selkies_tpu_torch.audio import opus_available\n"
@@ -116,7 +133,10 @@ def test_port_imports_with_jax_and_jax_package_blocked():
         "assert [len(o) for o in out] == [1, 1]\n"
         "out, _ = MeshH264Encoder(mesh, 2, 32, 16, stripe_h=16).encode_frames(f)\n"
         "assert [len(o) for o in out] == [1, 1]\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'selkies_tpu.'))\n"
+        "from selkies_tpu_torch.tools.cavlc_fuzz import check_device_seed\n"
+        "assert check_device_seed(0, device='cpu', mb_w=2, mb_h=1)[0]\n"
+        "assert not any(m in ('jax', 'tools')\n"
+        "               or m.startswith(('jax.', 'selkies_tpu.', 'tools.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('isolated')\n"
     )

@@ -15,7 +15,10 @@
   and asks for a keyframe at frame 10 from inside ``next_frame()``, so
   both apps apply each change to the same frame. The stand-in's
   depayloaded access units and their RTP timestamps must be equal byte for
-  byte and in order, and the one at frame 10 must be an IDR.
+  byte and in order, and the one at frame 10 must be an IDR. The JAX
+  encoder's programs are compiled over the same frames before its
+  session, so the session's 60 s wait is spent streaming, not compiling;
+  a session that still stalls names its side and frame in the failure.
 * The port's differences from the JAX app: a session whose pipeline
   cannot start ends ``run()`` with that error, and ``stop_pipeline`` waits
   for the media loops.
@@ -122,7 +125,8 @@ async def _stream(app_mod, pc_mod, frames, **app_kw):
     congestion controller's estimates are recorded, not applied, so the
     QP changes only where the source changes it. Returns the stand-in's
     (access unit, RTP timestamp) list, the encoder's last QP and the
-    frames the app sent."""
+    frames the app sent, and None or, where the stand-in did not get
+    every frame within the wait, which side stalled at which frame."""
     browser = pc_mod.PeerConnection(interfaces=["127.0.0.1"])
     got = []
     browser.video_receiver().on_frame = lambda f, ts: got.append((f, ts))
@@ -137,16 +141,22 @@ async def _stream(app_mod, pc_mod, frames, **app_kw):
     await browser.set_remote_description(await app.pc.create_offer(),
                                          "offer")
     await app._on_sdp("answer", await browser.create_answer())
+    stall = None
     try:
         for _ in range(1200):
             if len(got) >= N_FRAMES:
                 break
             await asyncio.sleep(0.05)
+        else:
+            src = holder.get("src")
+            stall = (f"{app_mod.__name__}: in 60 s the source handed out "
+                     f"{src.k if src else 0} frames, the app sent "
+                     f"{app.frames_sent}, the browser got {len(got)}")
     finally:
         qp = app.encoder.qp
         await app.stop_pipeline()
         await browser.close()
-    return got, qp, app.frames_sent
+    return got, qp, app.frames_sent, stall
 
 
 def _nal_types(au: bytes):
@@ -154,20 +164,44 @@ def _nal_types(au: bytes):
             if au[i:i + 4] == b"\x00\x00\x00\x01"]
 
 
+def _warm_jax_encoder(frames):
+    """Build the JAX session's programs before its session starts: the
+    JAX app's default encoder (one stripe over the frame) behind the
+    pipeline its video loop builds, fed the session's frames one at a
+    time with its QP change and keyframe request. The programs are jitted
+    at module level, so the session's own encoder finds them built: on a
+    loaded host their first compiles outlasted the session's wait."""
+    from selkies_tpu.encoder.h264 import H264StripeEncoder
+    from selkies_tpu.encoder.pipeline import PipelinedH264Encoder
+
+    enc = H264StripeEncoder(W, H, stripe_height=H)
+    pipe = PipelinedH264Encoder(enc, depth=3, fetch_group=1)
+    for k, f in enumerate(frames):
+        if k == QP_AT:
+            enc.qp = japp.bitrate_to_qp(2_000_000)
+        if k == KEY_AT:
+            enc.request_keyframe()
+        pipe.submit(f)
+        pipe.flush()
+
+
 @pytest.fixture(scope="module")
 def sessions():
+    """Each app's (access units, last QP, frames sent), and the stalls
+    either session met."""
     frames = _frames()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SELKIES_TPU_ME", "scan")
-        want = asyncio.run(_stream(japp, jpc, frames))
-    got = asyncio.run(_stream(tapp, tpc, frames, device="cpu"))
-    return want, got
+        _warm_jax_encoder(frames)
+        *want, want_stall = asyncio.run(_stream(japp, jpc, frames))
+    *got, got_stall = asyncio.run(_stream(tapp, tpc, frames, device="cpu"))
+    return tuple(want), tuple(got), [s for s in (want_stall, got_stall) if s]
 
 
 def test_slice_streams_the_jax_apps_bytes(sessions):
-    (want, want_qp, want_sent), (got, got_qp, got_sent) = sessions
-    assert want_sent == got_sent == N_FRAMES
-    assert len(got) == N_FRAMES
+    (want, want_qp, want_sent), (got, got_qp, got_sent), stalls = sessions
+    assert want_sent == got_sent == N_FRAMES, stalls
+    assert len(got) == N_FRAMES, stalls
     assert [ts for _, ts in got] == [k * 90000 // FPS for k in range(N_FRAMES)]
     assert got == want                       # bytes and timestamps, in order
     assert want_qp == got_qp == 34
@@ -190,7 +224,7 @@ def _synchronous(frames, qp_at=QP_AT):
 
 
 def test_slice_takes_the_new_qp_at_the_frame_it_was_set(sessions):
-    _, (got, _, _) = sessions
+    _, (got, _, _), _ = sessions
     frames = _frames()
     assert [au for au, _ in got] == _synchronous(frames)
     unchanged = _synchronous(frames, qp_at=None)
@@ -199,7 +233,7 @@ def test_slice_takes_the_new_qp_at_the_frame_it_was_set(sessions):
 
 
 def test_slice_keyframes_where_asked(sessions):
-    _, (got, _, _) = sessions
+    _, (got, _, _), _ = sessions
     idr = [k for k, (au, _) in enumerate(got) if 5 in _nal_types(au)]
     assert idr == [0, KEY_AT]
     assert all(_nal_types(au)[0] == 7 for au, _ in (got[0], got[KEY_AT]))
