@@ -4313,10 +4313,12 @@ def _span_stats(spans) -> dict:
                              "n": len(d)}
     g2g = [t.total_ms for t in spans]
     enc = [e for t in spans if (e := t.encode_only_ms) is not None]
-    # time between the marked stages (a frame waiting in the driver's
+    # time between the recorder's stages (a frame waiting in the driver's
     # submit queue, in the pipeline behind earlier frames, or for the
-    # harvesting thread's next poll)
-    gaps = [t.total_ms - sum(t.duration_ms(st) for st in t.spans)
+    # harvesting thread's next poll; a lane span names these waits in
+    # LANE_STAGES, which overlap and are left out here)
+    gaps = [t.total_ms - sum(t.duration_ms(st) for st in t.spans
+                             if st in STAGES)
             for t in spans]
     return {"stages": stages, "glass_to_glass_p50_ms": pct(g2g, 50),
             "glass_to_glass_p95_ms": pct(g2g, 95),

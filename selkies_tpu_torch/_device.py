@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Union
+import time
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -100,3 +101,110 @@ def adopt_frame(frame: torch.Tensor, device: torch.device,
         stream.wait_stream(torch.cuda.current_stream(frame.device))
         frame.record_stream(stream)
     return frame
+
+
+#: seconds between two anchors of a device clock: a harvest re-anchors at
+#: most this often, so the card's timer and ``CLOCK_MONOTONIC`` cannot drift
+#: apart over a long run
+ANCHOR_EVERY_S = 1.0
+#: the widest host bracket (from the record to its observed completion) an
+#: anchor may have; a wider one is discarded and the previous anchor kept
+ANCHOR_BRACKET_S = 2e-4
+
+_clocks: Dict[torch.device, "DeviceClock"] = {}
+_clocks_lock = threading.Lock()
+
+
+class DeviceClock:
+    """Timing events of one card on the host's ``time.monotonic()`` clock.
+
+    CUDA timing events measure only against each other, on the card's own
+    timer. An *anchor* is a timing event whose host time is known: it is
+    recorded on a stream of its own that nothing else uses (so it runs at
+    once, whatever the encoder streams are doing), and the host clock is
+    read just before the record and just after its completion; the anchor
+    stands at the middle of that bracket. Any later event of the card
+    stands at the anchor's host time plus the elapsed time between the two.
+
+    Made (after a synchronize of the card) when the first lane of the card
+    is built; :meth:`refresh`, called at each harvest, takes a new anchor
+    at most every ``ANCHOR_EVERY_S``."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = torch.device(device)
+        # a high-priority stream: never one of the pooled normal-priority
+        # streams the encoders run on
+        self.stream = torch.cuda.Stream(device=self.device, priority=-1)
+        self.anchor: Optional[tuple] = None
+        self._anchored_at = 0.0
+        torch.cuda.synchronize(self.device)
+        for _ in range(3):
+            self._take()
+
+    def _take(self) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        t0 = time.monotonic()
+        ev.record(self.stream)
+        ev.synchronize()
+        t1 = time.monotonic()
+        self._anchored_at = t1
+        if self.anchor is None or t1 - t0 <= ANCHOR_BRACKET_S:
+            self.anchor = (ev, 0.5 * (t0 + t1))
+
+    def refresh(self) -> None:
+        """A new anchor if the last was taken ``ANCHOR_EVERY_S`` ago."""
+        if time.monotonic() - self._anchored_at >= ANCHOR_EVERY_S:
+            self._take()
+
+    def record(self, stream) -> tuple:
+        """A timing event recorded on ``stream`` now, with the anchor to
+        read it against (taken before it, so their distance is >= 0)."""
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(stream)
+        return ev, self.anchor
+
+    @staticmethod
+    def host_time(event, anchor: tuple) -> float:
+        """``event``'s completion on the host clock (both completed)."""
+        ev, t = anchor
+        return t + ev.elapsed_time(event) / 1e3
+
+
+def device_clock(device: torch.device) -> DeviceClock:
+    """The one :class:`DeviceClock` of a card, made at first use."""
+    device = torch.device(device)
+    with _clocks_lock:
+        clock = _clocks.get(device)
+        if clock is None:
+            clock = _clocks[device] = DeviceClock(device)
+        return clock
+
+
+class TickClock:
+    """A lane tick's device interval on the host clock: from the first
+    shard's start (a timing event recorded on each shard's stream when the
+    tick's dispatch begins) to the last shard's completion (a timing event
+    recorded on each shard's stream after its prefix copy). Without a card
+    it stamps nothing and reads None."""
+
+    def __init__(self, shards) -> None:
+        #: (clock, stream) per shard, in shard order
+        self._shards = [(device_clock(sh.device), sh.stream)
+                        for sh in shards if sh.stream is not None]
+
+    def stamp(self) -> Optional[list]:
+        """A timing event on every shard's stream now, each with its
+        card's anchor: a tick's start, or its completion."""
+        return [c.record(s) for c, s in self._shards] or None
+
+    def interval(self, starts, ends) -> Optional[Tuple[float, float]]:
+        """The tick's (start, completion) on the host clock, from its
+        :meth:`stamp` lists (all completed: call after the harvest); then
+        refresh the anchors."""
+        if not starts or not ends:
+            return None
+        t0 = min(DeviceClock.host_time(ev, a) for ev, a in starts)
+        t1 = max(DeviceClock.host_time(ev, a) for ev, a in ends)
+        for clock, _s in self._shards:
+            clock.refresh()
+        return t0, t1

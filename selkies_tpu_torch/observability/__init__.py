@@ -14,14 +14,9 @@ Two surfaces (docs/observability.md):
   measurement substrate behind ``glass_to_glass_ms`` /
   ``encode_only_ms``, the ``system_health`` stage breakdown, and
   tools/trace_report.py.
-
-``FrameTracer``/``StageSpan`` are the pre-recorder stamp-based API,
-kept as a compatibility shim.
 """
 
 from .metrics import Metrics
-from .tracing import (STAGES, FlightRecorder, FrameTrace, FrameTracer,
-                      StageSpan)
+from .tracing import STAGES, FlightRecorder, FrameTrace
 
-__all__ = ["Metrics", "FlightRecorder", "FrameTrace", "STAGES",
-           "FrameTracer", "StageSpan"]
+__all__ = ["Metrics", "FlightRecorder", "FrameTrace", "STAGES"]

@@ -51,8 +51,9 @@ Export surfaces:
   served at ``/debug/trace`` and summarized by tools/trace_report.py;
 * per-display stage summaries riding the ``system_health`` wire feed.
 
-``FrameTracer``/``StageSpan`` below are the pre-recorder API, kept as a
-compatibility shim (stamp-based spans; summaries over a list ring).
+A lane frame's span carries the port's :data:`LANE_STAGES` besides
+:data:`STAGES`: the waits between the recorder's stages, so that a lane
+span's stages tile it from capture start to send end.
 """
 
 from __future__ import annotations
@@ -60,11 +61,10 @@ from __future__ import annotations
 import os
 import threading
 import time
-from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
-    "STAGES", "FlightRecorder", "FrameTrace", "FrameTracer", "StageSpan",
+    "STAGES", "FlightRecorder", "FrameTrace",
 ]
 
 #: the eight stages of a served frame's flight, in path order.
@@ -79,6 +79,27 @@ __all__ = [
 #: ack         send completion -> CLIENT_FRAME_ACK (network RTT + decode)
 STAGES = ("capture", "stage", "dispatch", "fetch_wait", "pack",
           "queue", "send", "ack")
+
+#: the port's stages of a lane frame's flight (``parallel/coordinator.py``,
+#: ``handoff`` in ``server/data_server.py``, which marks it on a solo
+#: frame's span too), in path order. With capture, dispatch, fetch_wait,
+#: pack, queue and send they tile a lane span from capture start to send
+#: end; ``device`` overlaps dispatch.
+#:
+#: superseded   first submit of the slot's run of pending frames -> the
+#:              submit of the frame the tick took (the newest: the lane
+#:              encodes it into the run's first span)
+#: pending      that submit -> the tick's dispatch start (planning, and a
+#:              full in-flight window's blocking harvest)
+#: device       the tick on the card, first shard's start -> last shard's
+#:              completion, on the host clock (on a card only)
+#: device_tail  dispatch end -> the tick's device completion where later,
+#:              at most up to the harvest's start (on a card only)
+#: harvest_lag  dispatch end (or device completion) -> harvest start
+#: handoff      pack end -> the frame's last stripe offered to its send
+#:              queue (the capture loop's poll, then the emit)
+LANE_STAGES = ("superseded", "pending", "device", "device_tail",
+               "harvest_lag", "handoff")
 
 
 class FrameTrace:
@@ -506,80 +527,3 @@ def capture_profiler_trace(out_dir: str, duration_ms: float
         _PROFILER_TRACE_LOCK.release()
     return {"path": path, "duration_ms": duration_s * 1000.0,
             "cuda": on_card, "device_events": device_events}
-
-
-# ---------------------------------------------------------------------------
-# Compatibility shim: the pre-recorder stamp-based API
-#
-# FrameTracer predates the flight recorder (it was imported by nothing
-# but its own test). The names stay importable so downstream code and
-# tests evolve instead of breaking; new call sites use FlightRecorder.
-
-
-@dataclass
-class StageSpan:
-    """Stamp-based span (compat): a dict of instant timestamps."""
-
-    frame_id: int
-    stamps: Dict[str, float] = field(default_factory=dict)
-
-    def mark(self, stage: str) -> None:
-        self.stamps[stage] = time.monotonic()
-
-    def duration_ms(self, a: str, b: str) -> Optional[float]:
-        if a in self.stamps and b in self.stamps:
-            return (self.stamps[b] - self.stamps[a]) * 1000.0
-        return None
-
-    @property
-    def total_ms(self) -> Optional[float]:
-        if not self.stamps:
-            return None
-        return (max(self.stamps.values()) - min(self.stamps.values())) * 1e3
-
-
-class FrameTracer:
-    """Compat ring of :class:`StageSpan` + percentile summaries."""
-
-    def __init__(self, capacity: int = 600):
-        self.capacity = capacity
-        self._ring: List[StageSpan] = []
-        self._open: Dict[int, StageSpan] = {}
-
-    def begin(self, frame_id: int) -> StageSpan:
-        span = StageSpan(frame_id)
-        span.mark("capture")
-        self._open[frame_id] = span
-        return span
-
-    def mark(self, frame_id: int, stage: str) -> None:
-        span = self._open.get(frame_id)
-        if span is not None:
-            span.mark(stage)
-
-    def finish(self, frame_id: int) -> Optional[StageSpan]:
-        span = self._open.pop(frame_id, None)
-        if span is None:
-            return None
-        span.mark("send")
-        self._ring.append(span)
-        if len(self._ring) > self.capacity:
-            self._ring = self._ring[-self.capacity:]
-        return span
-
-    def percentile_ms(self, a: str, b: str, pct: float = 50.0
-                      ) -> Optional[float]:
-        vals = sorted(
-            d for s in self._ring
-            if (d := s.duration_ms(a, b)) is not None)
-        if not vals:
-            return None
-        return _pct(vals, pct)
-
-    def summary(self) -> Dict[str, Optional[float]]:
-        return {
-            "p50_total_ms": self.percentile_ms("capture", "send", 50),
-            "p95_total_ms": self.percentile_ms("capture", "send", 95),
-            "p50_encode_ms": self.percentile_ms("dispatch", "harvest", 50),
-            "frames": float(len(self._ring)),
-        }

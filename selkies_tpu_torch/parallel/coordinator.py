@@ -148,7 +148,10 @@ class MeshSessionFacade:
         (D2H materialization, from their ``last_harvest_stages``) and
         ``pack`` (host slice concat /
         entropy glue); injected encoders without the split fall back to
-        whole-wall ``fetch_wait`` (docs/observability.md)."""
+        whole-wall ``fetch_wait`` (docs/observability.md). Before them
+        come the lane's waits (``observability.tracing.LANE_STAGES``):
+        ``superseded``, ``pending``, ``dispatch``, on a card ``device``
+        and ``device_tail``, then ``harvest_lag``."""
         return self._coord._pop_trace(self.sid, seq)
 
     def close(self) -> None:
@@ -161,9 +164,10 @@ class _Session:
     """Scheduler-side state of one attached session (slot-independent, so
     migration only touches the lane/slot binding)."""
 
-    __slots__ = ("sid", "lane", "slot", "gen", "seq", "pending", "results",
-                 "traces", "inflight", "want_key", "want_reset",
-                 "migrations_pending", "coded_bytes_total", "closed")
+    __slots__ = ("sid", "lane", "slot", "gen", "seq", "pending",
+                 "submitted", "results", "traces", "inflight", "want_key",
+                 "want_reset", "migrations_pending", "coded_bytes_total",
+                 "closed")
 
     def __init__(self, sid: int, lane: "_Lane", slot: int) -> None:
         self.sid = sid
@@ -175,6 +179,9 @@ class _Session:
         self.gen = 0
         self.seq = 0
         self.pending: Any = None
+        #: (first, latest) submit time of the run of frames the pending
+        #: one replaced, itself the latest (the trace's ``superseded``)
+        self.submitted: Tuple[float, float] = (0.0, 0.0)
         self.results: List[Tuple[int, list]] = []
         #: seq -> stage intervals for the flight recorder (bounded)
         self.traces: Dict[int, dict] = {}
@@ -206,7 +213,8 @@ class _Lane:
         #: frames lost to failed dispatch/harvest ticks, per slot (so a
         #: single noisy session is attributable)
         self.slot_errors = [0] * n_slots
-        #: (pending, [(session, slot, gen)], dispatch_interval)
+        #: (pending, [(session, slot, gen)], dispatch_interval,
+        #: {slot: (first, latest) submit time of the frame taken})
         self.inflight_q: deque = deque()
         #: [(session, slot, gen)] taken by the tick being dispatched, not
         #: yet in inflight_q (they count toward a new submit's seq)
@@ -724,10 +732,12 @@ class MeshEncodeCoordinator:
 
     def _submit(self, sid: int, frame) -> Optional[int]:
         with self._lock:
+            t = time.monotonic()
             sess = self._sessions.get(sid)
             if sess is None:
                 return None
             dropped = sess.pending is not None
+            sess.submitted = (sess.submitted[0] if dropped else t, t)
             sess.pending = frame
             # the seq THIS frame will harvest under: seq advances only at
             # harvest, so same-generation frames already in the in-flight
@@ -888,10 +898,23 @@ class MeshEncodeCoordinator:
         except Exception:
             return True
 
+    def _device_interval(self, lane: _Lane, pending):
+        """The harvested tick's interval on the card, on the host clock,
+        from the lane encoder (None: no card, or an encoder without it)."""
+        read = getattr(lane.enc, "device_interval", None)
+        if read is None:
+            return None
+        try:
+            return read(pending)
+        except Exception:
+            logger.debug("lane %d: no device interval", lane.id,
+                         exc_info=True)
+            return None
+
     def _harvest_oldest(self, lane: _Lane) -> None:
         """Harvest the head of a lane's in-flight window (dispatch order
         is mandatory: per-stripe host state advances per tick)."""
-        pending, took, dispatch_iv = lane.inflight_q[0]
+        pending, took, dispatch_iv, submits = lane.inflight_q[0]
         t0 = time.monotonic()
         try:
             out, session_bytes = lane.enc.harvest(pending)
@@ -918,6 +941,18 @@ class MeshEncodeCoordinator:
                         "pack": (t_split, t1)}
         else:
             trace_iv = {"dispatch": dispatch_iv, "fetch_wait": (t0, t1)}
+        # the tick's wait for the card and then for this harvest: the
+        # card's tail past the dispatch's end (up to the harvest's start;
+        # a harvest that starts earlier waits for the rest in fetch_wait),
+        # then harvest_lag
+        ready = dispatch_iv[1]
+        device_iv = self._device_interval(lane, pending)
+        if device_iv is not None:
+            trace_iv["device"] = device_iv
+            tail_end = min(max(ready, device_iv[1]), t0)
+            trace_iv["device_tail"] = (ready, tail_end)
+            ready = tail_end
+        trace_iv["harvest_lag"] = (ready, t0)
         # encoder-internal stripe-job failures (whole-frame containment
         # withheld the AU without raising) must charge the slot exactly
         # like a harvest raise or an injected fault — otherwise a sick
@@ -948,7 +983,11 @@ class MeshEncodeCoordinator:
                 seq = sess.seq
                 sess.seq = seq + 1
                 sess.results.append((seq, out[slot]))
-                sess.traces[seq] = dict(trace_iv)
+                # the frame's wait before the tick: the run of submits it
+                # ended (the lane encodes the newest), then for the tick
+                first, latest = submits[slot]
+                sess.traces[seq] = {**trace_iv, "superseded": (first, latest),
+                                    "pending": (latest, dispatch_iv[0])}
                 while len(sess.traces) > 32:
                     sess.traces.pop(next(iter(sess.traces)))
 
@@ -970,7 +1009,7 @@ class MeshEncodeCoordinator:
         if faults is not None:
             faults.maybe_raise("mesh.tick_raise")
         now = time.monotonic()
-        plans: List[Tuple[_Lane, list, list]] = []
+        plans: List[Tuple[_Lane, list, list, dict]] = []
         with self._lock:
             self._retire_idle_lanes_locked(now)
             for sess in self._sessions.values():
@@ -996,6 +1035,7 @@ class MeshEncodeCoordinator:
                     continue
                 frames = [None] * lane.n_slots
                 took: List[Tuple[_Session, int, int]] = []
+                submits: Dict[int, Tuple[float, float]] = {}
                 for slot, sess in list(lane.sessions.items()):
                     if sess.pending is None:
                         continue
@@ -1026,14 +1066,16 @@ class MeshEncodeCoordinator:
                     sess.pending = None
                     sess.inflight += 1
                     took.append((sess, slot, sess.gen))
+                    submits[slot] = sess.submitted
                 if took or lane.inflight_q:
                     lane.dispatching = took
-                    plans.append((lane, frames, took))
-        for lane, frames, took in plans:
-            self._tick_lane(lane, frames, took)
+                    plans.append((lane, frames, took, submits))
+        for lane, frames, took, submits in plans:
+            self._tick_lane(lane, frames, took, submits)
         self._migrate_sick_sessions()
 
-    def _tick_lane(self, lane: _Lane, frames: list, took: list) -> None:
+    def _tick_lane(self, lane: _Lane, frames: list, took: list,
+                   submits: dict) -> None:
         dispatched = False
         try:
             # make room FIRST: the window is a hard bound on dispatched-
@@ -1046,7 +1088,8 @@ class MeshEncodeCoordinator:
             if pending is not None:
                 with self._lock:
                     lane.inflight_q.append(
-                        (pending, took, (t_disp0, time.monotonic())))
+                        (pending, took, (t_disp0, time.monotonic()),
+                         submits))
                     lane.dispatching = []
                     depth = sum(len(ln.inflight_q) for ln in self.lanes)
                     self.inflight_batches_max = max(

@@ -32,7 +32,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .._device import adopt_frame, encoder_stream, on_device, resolve_device
+from .._device import (TickClock, adopt_frame, encoder_stream, on_device,
+                       resolve_device)
 from ..encoder.staging import HostCopy, SlotUploads
 
 #: pinned host batches a lane's uploads take turns in: the scheduler's
@@ -586,6 +587,8 @@ class _MeshPending:
     reuse_prev: np.ndarray
     first: np.ndarray
     stride: int
+    starts: Optional[list] = None   # the tick's device start stamps
+    ends: Optional[list] = None     # its device completion stamps
 
 
 class MeshStripeEncoder:
@@ -638,6 +641,8 @@ class MeshStripeEncoder:
         #: own)
         self.device = self.shards[0].device
         self.stream = self.shards[0].stream
+        #: each tick's device interval on the host clock (none on the CPU)
+        self._clock = TickClock(self.shards)
 
         ry, rc, (ly, lc), (py, pc) = _recip_tables(quality, paintover_quality)
         self._headers = tuple(
@@ -723,6 +728,7 @@ class MeshStripeEncoder:
         """Dispatch one step for all sessions and start the async D2H
         prefix fetch of every shard; pair with :meth:`harvest`. ``frames``
         as :meth:`LaneFrames.batch` takes them, for the whole lane."""
+        starts = self._clock.stamp()
         parts = split_frames(self.shards, frames, self.pad_h)
         batches = []
         reuse_prev = np.zeros(self.n_sessions, bool)
@@ -761,12 +767,19 @@ class MeshStripeEncoder:
         return _MeshPending(
             fetch=fetch, packed=packed, yq=yq, cbq=cbq, crq=crq,
             paint_candidate=paint_candidate, reuse_prev=reuse_prev,
-            first=first, stride=stride)
+            first=first, stride=stride, starts=starts,
+            ends=self._clock.stamp())
 
     def fetch_ready(self, p: _MeshPending) -> bool:
         """True when every shard's prefix copy has landed (event queries:
         never blocks) — the scheduler's in-flight window harvests then."""
         return all(f.ready() for f in p.fetch)
+
+    def device_interval(self, p: _MeshPending
+                        ) -> Optional[Tuple[float, float]]:
+        """The harvested tick's (start, completion) on the card, on the
+        host's monotonic clock; None on the CPU."""
+        return self._clock.interval(p.starts, p.ends)
 
     def harvest(self, p: _MeshPending) -> Tuple[List[List], np.ndarray]:
         """Complete one dispatched step: returns (stripes_per_session,

@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import TickClock
 from ..encoder import device_cavlc as dcav
 from ..encoder import h264_device as dev
 from ..encoder.h264 import (H264Stripe, _entropy_pool, encode_picture_nals_np,
@@ -98,6 +99,8 @@ class _MeshH264Pending:
     reuse_prev: np.ndarray        # [N] bool
     qp: np.ndarray                # [N, S] int — qp each stripe coded at
     key_req: np.ndarray           # [N] keyframe requests made before it
+    starts: Optional[list] = None  # the tick's device start stamps
+    ends: Optional[list] = None    # its device completion stamps
 
 
 #: the plane sets a lane keeps per shard: (name, rows per frame row)
@@ -146,6 +149,8 @@ class MeshH264Encoder:
         #: enters its own)
         self.device = self.shards[0].device
         self.stream = self.shards[0].stream
+        #: each tick's device interval on the host clock (none on the CPU)
+        self._clock = TickClock(self.shards)
 
         n = (stripe_h // MB) * (self.pad_w // MB)
         self._shapes = [((n, 2), 2 * n), ((n, 16, 4, 4), 256 * n),
@@ -308,6 +313,7 @@ class MeshH264Encoder:
         ``frames`` as :meth:`~.mesh.LaneFrames.batch` takes them, for the
         whole lane (None entries re-present the previous frame; damage
         gating suppresses them)."""
+        starts = self._clock.stamp()
         parts = split_frames(self.shards, frames, self.pad_h)
         batches = []
         reuse_prev = np.zeros(self.n_sessions, bool)
@@ -350,12 +356,19 @@ class MeshH264Encoder:
                 fetch.append(HostCopy(heads[i], st.shard.stream))
         return _MeshH264Pending(
             fetch=fetch, flat16=flat16, idr=idr, paint=paint,
-            reuse_prev=reuse_prev, qp=qp_arr, key_req=self._key_req.copy())
+            reuse_prev=reuse_prev, qp=qp_arr, key_req=self._key_req.copy(),
+            starts=starts, ends=self._clock.stamp())
 
     def fetch_ready(self, p: _MeshH264Pending) -> bool:
         """True when every shard's heads copy has landed (event queries:
         never blocks) — the scheduler's in-flight window harvests then."""
         return all(f.ready() for f in p.fetch)
+
+    def device_interval(self, p: _MeshH264Pending
+                        ) -> Optional[Tuple[float, float]]:
+        """The harvested tick's (start, completion) on the card, on the
+        host's monotonic clock; None on the CPU."""
+        return self._clock.interval(p.starts, p.ends)
 
     def harvest(self, p: _MeshH264Pending
                 ) -> Tuple[List[List[H264Stripe]], np.ndarray]:

@@ -44,7 +44,8 @@ Counterpart of ``selkies_tpu/server/data_server.py``. What the port serves:
 * the flight recorder (``recorder``, observability/tracing.py): every
   captured frame opens a span, the encoder's stage intervals are folded
   in at harvest (``pop_trace``), the frame's last stripe rides the
-  owner's send queue traced (``queue``/``send``), and CLIENT_FRAME_ACK
+  owner's send queue traced (``queue``/``send``; a frame's wait from the
+  end of its harvest to that offer is ``handoff``), and CLIENT_FRAME_ACK
   closes it (``ack``); every other end is a terminal ``empty``,
   ``dropped@<stage>`` or ``expired@<stage>`` mark, so no span stays open.
   ``metrics`` (wired by ``main``) gets the JAX server's series;
@@ -139,6 +140,15 @@ def _ws_broadcast(targets, message) -> None:
         websockets.broadcast(real, message)
 
 
+def _mark_handoff(tr, t_offer: float) -> None:
+    """A harvested frame's ``handoff``: from the end of its harvest (its
+    ``pack``, else ``fetch_wait``) to its last stripe's offer at
+    ``t_offer`` (the capture loop's poll, then the emit)."""
+    harvest = tr.spans.get("pack") or tr.spans.get("fetch_wait")
+    if harvest is not None:
+        tr.mark("handoff", harvest[1], t_offer)
+
+
 class _TracedChunk:
     """A media chunk carrying its frame's flight-recorder trace through the
     owner's send queue: only the LAST stripe of a frame rides traced (the
@@ -197,8 +207,9 @@ class _ClientSendQueue:
     def offer_traced(self, payload, trace) -> None:
         """Queue the frame's last stripe with its trace attached (the queue
         stage opens now; the drainer closes it when it pops the chunk)."""
-        self.offer(_TracedChunk(payload, trace, time.monotonic()),
-                   control=False)
+        now = time.monotonic()
+        _mark_handoff(trace, now)
+        self.offer(_TracedChunk(payload, trace, now), control=False)
 
     async def _send_one(self, message) -> None:
         if not isinstance(message, _TracedChunk):
@@ -1755,6 +1766,7 @@ class DataStreamingServer:
                     t0 = time.monotonic()
                     _ws_broadcast({owner}, chunk)
                     t1 = time.monotonic()
+                    _mark_handoff(tr, t0)
                     tr.mark("queue", t0, t0)
                     tr.mark("send", t0, t1)
                     recorder.sent(tr)

@@ -1109,3 +1109,138 @@ def test_cavlc_fuzz_device_mode_on_the_card(cuda_device):
         if not ok:
             fails.append((seed, why))
     assert fails == []
+
+
+@pytest.mark.parametrize("codec", ["jpeg", "x264enc-striped"])
+def test_lane_device_stamps_agree_with_the_profiler(cuda_device, codec):
+    """A lane of 2 at 256x128 ticks under ``torch.profiler``. Each tick's
+    device-completion stamp (``device_interval``: CUDA timing events on
+    the host's monotonic clock) lies before, and within 0.5 ms of, the
+    moment the host saw the tick's prefix copy land; and within 0.5 ms,
+    median, of the end of the tick's last device record before its
+    harvest (its prefix D2H copy), once the profiler's records are put on
+    the monotonic clock by one offset, as ``streambench/profiling.py``
+    does. A window is taken again where CUPTI recorded no kernel, as
+    ``profiling.py`` does, or where the host's sight refutes the
+    profiler's own time line: a prefix copy's record ending after the
+    host saw that copy land, or the records' rate against the stamps off
+    by more than 0.1% (the profiler converts the card's timestamps by a
+    line of its own per session)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from selkies_tpu_torch.parallel import MeshStripeEncoder, parse_mesh_spec
+    from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder
+
+    mesh = parse_mesh_spec("session:1", [cuda_device])
+    cls = MeshStripeEncoder if codec == "jpeg" else MeshH264Encoder
+    enc = cls(mesh, 2, 256, 128, stripe_h=64)
+    rng = np.random.default_rng(7)
+    frames = [[rng.integers(0, 256, (128, 256, 3), dtype=np.uint8)
+               for _ in range(2)] for _ in range(4)]
+    for k in range(4):                      # warm every shape
+        enc.harvest(enc.dispatch(frames[k]))
+    cuda = torch.autograd.DeviceType.CUDA
+    retaken = []
+    for _try in range(8):
+        torch.cuda.synchronize()
+        ticks = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            unix_minus_mono = time.time() - time.monotonic()
+            for k in range(12):
+                p = enc.dispatch(frames[k % 4])
+                while not enc.fetch_ready(p):
+                    pass                     # the host sees the copy land
+                t_seen = time.monotonic()
+                time.sleep(0.003)            # the copy ends well before
+                t_harvest = time.monotonic()
+                enc.harvest(p)
+                ticks.append((t_seen, t_harvest, enc.device_interval(p)))
+                time.sleep(0.003)
+            torch.cuda.synchronize()
+        # the stamps against the host's own sight of each copy landing
+        for t_seen, _t_harvest, (t0, t1) in ticks:
+            assert t0 <= t1
+            assert -5e-5 <= t_seen - t1 <= 5e-4, (t_seen - t1)
+        records = [(e.name(), e.start_ns() / 1e9 - unix_minus_mono,
+                    e.end_ns() / 1e9 - unix_minus_mono)
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda]
+        if not any(not n.startswith(("Memcpy", "Memset"))
+                   for n, _s, _e in records):
+            retaken.append("no kernel record")
+            continue
+        # each tick's prefix copy: the D2H record nearest its stamp,
+        # following the profiler's clock from tick to tick (the ticks are
+        # ~10 ms apart, the harvest's own copies 3 ms after it); nothing
+        # ends between it and the harvest
+        d2h = sorted(e for n, _s, e in records
+                     if n.startswith("Memcpy DtoH"))
+        stamps, ends, seen, shift = [], [], [], 0.0
+        for t_seen, t_harvest, (_t0, t1) in ticks:
+            end = min(d2h, key=lambda e: abs(e - t1 - shift))
+            shift = end - t1
+            assert not [n for n, _s, e in records
+                        if end < e < t_harvest + shift - 1e-3], "not last"
+            stamps.append(t1)
+            ends.append(end)
+            seen.append(t_seen)
+        stamps, ends, seen = np.array(stamps), np.array(ends), np.array(seen)
+        rate, _offset = np.polyfit(stamps - stamps[0], ends, 1)
+        print(f"{codec} window {_try}: stamp - record end ms median "
+              f"{np.median(stamps - ends) * 1e3:+.4f}; host sight - stamp "
+              f"{np.median(seen - stamps) * 1e3:+.4f}, - record end "
+              f"{np.median(seen - ends) * 1e3:+.4f} (min "
+              f"{(seen - ends).min() * 1e3:+.4f}); rate {(rate - 1) * 100:+.4f}%")
+        if (ends - seen).max() > 5e-5:
+            retaken.append(f"a copy's record ends "
+                           f"{(ends - seen).max() * 1e3:.3f} ms after sight")
+            continue
+        if abs(rate - 1) > 1e-3:
+            retaken.append(f"profiler rate {(rate - 1) * 100:+.3f}%")
+            continue
+        break
+    else:
+        pytest.fail(f"no window to compare in 8: {retaken}")
+    delta = np.abs(stamps - ends) * 1e3
+    print(f"{codec}: |stamp - record end| ms, one offset: median "
+          f"{np.median(delta):.4f} p95 {np.percentile(delta, 95):.4f} max "
+          f"{delta.max():.4f}; the profiler's rate against the stamps "
+          f"{(rate - 1) * 100:+.4f}%; windows taken again: {retaken}")
+    assert np.median(delta) <= 0.5
+
+
+@pytest.mark.parametrize("codec", ["jpeg", "x264enc-striped"])
+def test_lane_device_interval_covers_every_shard(cuda_device, codec):
+    """A ``session:2`` lane of 4 at 256x128, its shards on two cards where
+    the machine has them, else both on one: each tick's device interval
+    starts after the host began its dispatch and ends before, and within
+    0.5 ms of, the moment the host saw the last shard's prefix copy land,
+    each shard read against its own card's anchor."""
+    import time
+
+    from selkies_tpu_torch.parallel import MeshStripeEncoder, parse_mesh_spec
+    from selkies_tpu_torch.parallel.mesh_h264 import MeshH264Encoder
+
+    devs = [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(2)]
+    mesh = parse_mesh_spec("session:2", devs)
+    cls = MeshStripeEncoder if codec == "jpeg" else MeshH264Encoder
+    enc = cls(mesh, 4, 256, 128, stripe_h=64)
+    rng = np.random.default_rng(11)
+    frames = [[rng.integers(0, 256, (128, 256, 3), dtype=np.uint8)
+               for _ in range(4)] for _ in range(4)]
+    for k in range(4):                      # warm every shape
+        enc.harvest(enc.dispatch(frames[k]))
+    for k in range(12):
+        t_begin = time.monotonic()
+        p = enc.dispatch(frames[k % 4])
+        while not enc.fetch_ready(p):
+            pass
+        t_seen = time.monotonic()
+        enc.harvest(p)
+        t0, t1 = enc.device_interval(p)
+        assert t_begin - 5e-5 <= t0 <= t1, (t0 - t_begin, t1 - t0)
+        assert -5e-5 <= t_seen - t1 <= 5e-4, (t_seen - t1)
+        time.sleep(0.003)
