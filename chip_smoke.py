@@ -642,6 +642,154 @@ def phase_kernel_check():
     }
 
 
+def _text_frames(n: int, k: int = 5, seed: int = 3600000001):
+    """Frame ``k`` of ``n`` seeded text sessions (the benchmark's densest
+    content, ``streambench.source``) at W x H."""
+    from streambench.source import Pattern
+
+    return [Pattern(W, H, seed + i, "text").frame(k).copy()
+            for i in range(n)]
+
+
+def _huffman_at(enc, n: int) -> dict:
+    """huffman_pack at the shape of ``n`` sessions' stripes folded into
+    the rows (the lane's one pack call a tick; n = 1 is the solo step's)
+    against its plain version on the same card planes, on text and scroll
+    frames at q40: nbytes, base_words and overflow equal, words equal
+    outside flagged stripes (none is flagged at the stripe budget); kernel
+    and plain times and the byte bound."""
+    import torch
+
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.encoder.device_entropy import (DeviceEntropyPacker,
+                                                          huffman_pack)
+    from selkies_tpu_torch.encoder.jpeg import BLOCK_WORDS, max_stripe_bytes
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+
+    sets = {"text": _text_frames(n),
+            "scroll": [SyntheticSource(W, H, pattern="scroll", seed=10 + k)
+                       .next_frame() for k in range(n)]}
+    packer = DeviceEntropyPacker(
+        n * enc.pad_h, enc.pad_w, STRIPE, block_words=BLOCK_WORDS,
+        max_stripe_bytes=max_stripe_bytes(STRIPE, enc.pad_w), device=DEVICE,
+        sessions=n)
+    planes, out = {}, {}
+    for name, frames in sets.items():
+        lp = _lane_planes(frames, enc)
+        # the encoder's q40 band everywhere
+        lp = [(p, r, torch.zeros_like(i)) for p, r, i in lp]
+        planes[name] = dct8_quant_zigzag(lp)
+        l0 = huffman_pack.launches
+        got = packer.pack(*planes[name])
+        torch.cuda.synchronize()
+        check(huffman_pack.launches == l0 + 2,
+              f"huffman_pack N={n}: {huffman_pack.launches - l0} launches "
+              "for one call (2 expected)")
+        want = packer.pack_plain(*planes[name])
+        meta_equal = all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+        flagged = int(want[3].sum().item())
+        words_equal = flagged == 0 and torch.equal(got[0], want[0])
+        check(meta_equal and words_equal,
+              f"huffman_pack vs plain at N={n} ({name}): meta equal "
+              f"{meta_equal}, words equal {words_equal}, {flagged} flagged")
+        out[name] = {"bytes_coded": int(want[1].sum().item()),
+                     "max_stripe_bytes_coded": int(want[1].max().item()),
+                     "flagged": flagged}
+    pl = planes["text"]
+    kernel_ms, how = device_ms(lambda: packer.pack(*pl), 50,
+                               f"huffman_pack/N{n}")
+    plain_ms, plain_how = device_ms(lambda: packer.pack_plain(*pl), 3,
+                                    f"huffman_pack/N{n}/plain")
+    in_bytes = sum(t.numel() * 2 for t in pl) + packer._kernel_tables.numel() * 4
+    out_bytes = n * packer.cap_words * 4 + packer.n_stripes * (8 + 8 + 1)
+    bound_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    return {"sessions": n,
+            "shape": "[%d,%d,64]+2x[%d,%d,64]" % (pl[0].shape[:2]
+                                                 + pl[1].shape[:2]),
+            "stripe_budget_bytes": packer.max_stripe_words * 4,
+            "content": out, "ms": kernel_ms,
+            "ms_timing": f"{how} device time (both launches), warm L2, "
+                         "50 reps, text frames",
+            "plain_ms": plain_ms, "plain_timing": plain_how,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound": bound_ms / kernel_ms,
+            "bytes": in_bytes + out_bytes,
+            "unit": f"one pack call of {n} 1080p frames, 2 launches"}
+
+
+def phase_huffman_check():
+    """The Huffman pack kernel (csrc/huffman_pack.cu) against its plain
+    version on the card at the solo step's shape (one 1080p frame) and at
+    a JPEG lane tick's (MESH_SIZES sessions in one call); and, at the solo
+    shape, flagged stripes: a desktop frame with noise over stripes 5 and
+    6 at q100 (their blocks pass the block budget), and a scroll frame
+    under a budget of its median stripe (about half the stripes pass it),
+    where the words are compared outside the flagged spans. Launch counts
+    by path are filled from the JPEG paths' runs."""
+    import numpy as np
+    import torch
+
+    from selkies_tpu_torch.capture.synthetic import SyntheticSource
+    from selkies_tpu_torch.encoder.device_entropy import DeviceEntropyPacker
+    from selkies_tpu_torch.encoder.jpeg import BLOCK_WORDS, JpegStripeEncoder
+    from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
+
+    enc = JpegStripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE,
+                            quality=40, paintover_quality=100)
+    budget = enc._packer.max_stripe_words * 4
+
+    def planes_of(frame, band):
+        lp = _lane_planes([frame], enc)
+        return dct8_quant_zigzag(
+            [(p, r, torch.full_like(i, band)) for p, r, i in lp])
+
+    def packer(msb):
+        return DeviceEntropyPacker(enc.pad_h, enc.pad_w, STRIPE,
+                                   block_words=BLOCK_WORDS,
+                                   max_stripe_bytes=msb, device=DEVICE)
+
+    banded = SyntheticSource(W, H, pattern="desktop", seed=4).next_frame()
+    banded[5 * STRIPE:7 * STRIPE] = SyntheticSource(
+        W, H, pattern="noise", seed=8).next_frame()[5 * STRIPE:7 * STRIPE]
+    scroll = planes_of(SyntheticSource(W, H, pattern="scroll", seed=3)
+                       .next_frame(), 0)
+    sizes = np.sort(packer(budget).pack_plain(*scroll)[1].cpu().numpy())
+    overflow = {}
+    for name, planes, msb in (
+            ("q100_noise_band_block_budget", planes_of(banded, 1), budget),
+            ("q40_scroll_median_stripe_budget", scroll,
+             int(sizes[len(sizes) // 2]) // 4 * 4)):
+        pk = packer(msb)
+        got = pk.pack(*planes)
+        want = pk.pack_plain(*planes)
+        torch.cuda.synchronize()
+        meta_equal = all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+        nb, base, ovf = (t.cpu().numpy() for t in want[1:])
+        keep = np.ones(pk.cap_words, bool)
+        for s in np.flatnonzero(ovf):
+            keep[base[s]:base[s] + min(-(-nb[s] // 4),
+                                       pk.max_stripe_words)] = False
+        gw = got[0].cpu().numpy()
+        words_equal = bool(np.array_equal(gw[keep],
+                                          want[0].cpu().numpy()[keep]))
+        check(meta_equal and words_equal and 0 < ovf.sum() < len(ovf)
+              and not gw[~keep].any(),
+              f"huffman_pack {name}: meta equal {meta_equal}, words equal "
+              f"outside flagged {words_equal}, flagged {int(ovf.sum())}")
+        overflow[name] = {"stripe_budget_bytes": msb,
+                          "flagged": int(ovf.sum()),
+                          "words_compared": int(keep.sum())}
+    return {"name": "huffman_pack", "route": "cuda",
+            "source": "selkies_tpu_torch/csrc/huffman_pack.cu",
+            "replaces": "no TPU kernel: selkies_tpu/encoder/"
+                        "device_entropy.py:DeviceEntropyPacker.pack is XLA "
+                        "tensor code (the plain version's formulation)",
+            "solo": _huffman_at(enc, 1),
+            "lane_shapes": {f"N{n}": _huffman_at(enc, n) for n in MESH_SIZES},
+            "overflow": overflow,
+            "launches_by_path": {}}
+
+
 def _recording(base, n_frames: int):
     """Wrap base._scans_from_packed to keep, for each of up to ``n_frames``
     frames it codes, the scans it returned, the frame's emit and overflow
@@ -696,24 +844,27 @@ def _check_recorded(base, recorded) -> dict:
     return tally
 
 
-def _pipeline():
+def _pipeline(quality: int = 40):
     from selkies_tpu_torch.encoder.async_driver import AsyncEncodeDriver
     from selkies_tpu_torch.encoder.jpeg import JpegStripeEncoder
     from selkies_tpu_torch.encoder.pipeline import PipelinedJpegEncoder
 
-    base = JpegStripeEncoder(W, H, stripe_height=STRIPE, device=DEVICE)
+    base = JpegStripeEncoder(W, H, stripe_height=STRIPE, quality=quality,
+                             device=DEVICE)
     pipe = PipelinedJpegEncoder(base, depth=4, fetch_group=2)
     return base, pipe, AsyncEncodeDriver(pipe)
 
 
 def _overflow_run():
-    """Two 1080p desktop frames with a band of noise over stripes 5 and 6:
-    those overflow the device packer's budget and are host-coded, the rest
-    are device-packed; every stripe of both frames is checked."""
+    """Two 1080p desktop frames at quality 90 with a band of noise over
+    stripes 5 and 6: those code to ~110 KB a stripe, past the device
+    packer's 61,440-byte budget of a 1920x64 stripe (at q40 they code to
+    ~43 KB and fit), and are host-coded, the rest device-packed; every
+    stripe of both frames is checked."""
     from selkies_tpu_torch.capture.synthetic import SyntheticSource
 
     desk = SyntheticSource(W, H, pattern="desktop", seed=4)
-    base, pipe, drv = _pipeline()
+    base, pipe, drv = _pipeline(quality=90)
     try:
         kept = _recording(base, 2)
         for seed in (8, 9):
@@ -2263,13 +2414,14 @@ def _lane_run(profile: str, entropy, n: int):
     allocated before it was built; last, the first MESH_CHECK_TICKS ticks
     of the warm and timed runs against solo encoders. Returns (numbers,
     launches)."""
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
 
     kernel = dct8_quant_zigzag if profile == "jpeg" else me_mc_stripes
     other = me_mc_stripes if profile == "jpeg" else dct8_quant_zigzag
     alloc0 = _peak_mark()
-    kernel.launches = other.launches = 0
+    kernel.launches = other.launches = huffman_pack.launches = 0
     lane = _lane_encoder(profile, entropy, n)
     feed = _LaneFeed(n)
     warm, _, _ = _lane_drive(lane, [feed.next() for _ in range(2)])
@@ -2291,6 +2443,12 @@ def _lane_run(profile: str, entropy, n: int):
           f"lane {profile}/{entropy} of {n}: {launches} launches in "
           f"{ticks} ticks ({timed_launches} in {MESH_TICKS} timed), "
           f"{other.launches} of the other kernel")
+    # the JPEG lane packs all its sessions in one call a tick
+    pack_launches = huffman_pack.launches
+    check(DEVICE != "cuda"
+          or pack_launches == (2 * ticks if profile == "jpeg" else 0),
+          f"lane {profile}/{entropy} of {n}: {pack_launches} huffman_pack "
+          f"launches in {ticks} ticks")
     active = n - 1
     stripes = sum(len(s) for tick in out for s in tick)
     wire = sum(len(b) for tick in out for s in tick
@@ -2308,6 +2466,7 @@ def _lane_run(profile: str, entropy, n: int):
            "kernel": "dct8_quant_zigzag" if profile == "jpeg"
            else "me_mc_stripes",
            "kernel_launches": launches,
+           "huffman_pack_launches": pack_launches,
            "lane_ticks": ticks,
            "kernel_launches_per_tick": timed_launches / MESH_TICKS,
            "device_ops_per_tick": share["device_ops_per_frame"],
@@ -2643,10 +2802,11 @@ def _sync(devs) -> None:
 
 
 def _zero_counts():
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
 
-    for k in (dct8_quant_zigzag, me_mc_stripes):
+    for k in (dct8_quant_zigzag, me_mc_stripes, huffman_pack):
         k.launches = 0
         k.launches_by_device.clear()
 
@@ -2674,6 +2834,8 @@ def _md_lane(profile: str, devs) -> dict:
         return MeshH264Encoder(mesh, MD_LANE_SESSIONS, W, H,
                                stripe_h=STRIPE)
 
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
+
     kernel = dct8_quant_zigzag if profile == "jpeg" else me_mc_stripes
     feed = _LaneFeed(MD_LANE_SESSIONS)
     ticks = [feed.next() for _ in range(MD_LANE_TICKS)]
@@ -2685,6 +2847,7 @@ def _md_lane(profile: str, devs) -> dict:
     got, wall, disp = _lane_drive(two, ticks)
     _sync(devs)
     by_dev = dict(kernel.launches_by_device)
+    pack_by_dev = dict(huffman_pack.launches_by_device)
     per_shard = two.last_harvest_stages["per_shard_fetch_ms"]
     del two
     frames = mismatch = stripes = 0
@@ -2704,6 +2867,11 @@ def _md_lane(profile: str, devs) -> dict:
     check(DEVICE != "cuda" or sum(by_dev.values()) == 2 * MD_LANE_TICKS,
           f"multi_device lane {profile}: {by_dev} launches for "
           f"{MD_LANE_TICKS} ticks of 2 shards")
+    # the JPEG lane packs each shard in one call: two launches
+    check(DEVICE != "cuda" or sum(pack_by_dev.values())
+          == (4 * MD_LANE_TICKS if profile == "jpeg" else 0),
+          f"multi_device lane {profile}: {pack_by_dev} huffman_pack "
+          f"launches for {MD_LANE_TICKS} ticks of 2 shards")
     return {"profile": profile, "mesh": "session:2", "devices": devs,
             "sessions": MD_LANE_SESSIONS,
             "sessions_per_shard": MD_LANE_SESSIONS // 2,
@@ -2716,7 +2884,8 @@ def _md_lane(profile: str, devs) -> dict:
             "one_device_tick_ms": one_wall * 1e3 / MD_LANE_TICKS,
             "per_shard_fetch_ms": per_shard,
             "kernel": kernel.__name__, "kernel_launches": kernel.launches,
-            "kernel_launches_by_device": by_dev}
+            "kernel_launches_by_device": by_dev,
+            "huffman_pack_launches_by_device": pack_by_dev}
 
 
 class _SfeRecorder:
@@ -2770,6 +2939,7 @@ def _sfe_served(profile: str, devs) -> dict:
     before the display opens, read after it closes, by device."""
     import torch
 
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
     from selkies_tpu_torch.parallel.coordinator import MeshEncodeCoordinator
@@ -2849,6 +3019,7 @@ def _sfe_served(profile: str, devs) -> dict:
         asyncio.run(run())
     _sync(devs)
     by_dev = dict(kernel.launches_by_device)
+    pack_by_dev = dict(huffman_pack.launches_by_device)
     check(len(acked) >= MD_SFE_FRAMES,
           f"sfe {profile}: {len(acked)} frames ACKed")
     check(sup["restarts_total"] == 0 and sup["failures_total"] == 0,
@@ -2862,6 +3033,8 @@ def _sfe_served(profile: str, devs) -> dict:
         check(by_dev.get(d, 0) > 0,
               f"sfe {profile}: no {kernel.__name__} launch on {d} "
               f"({by_dev})")
+        check((pack_by_dev.get(d, 0) > 0) == (profile == "jpeg"),
+              f"sfe {profile}: huffman_pack launches {pack_by_dev}")
 
     # every access unit against the same lane on one device (cuda:0), with
     # the settings the scheduler gave it, fed the recorded calls in their
@@ -2918,7 +3091,8 @@ def _sfe_served(profile: str, devs) -> dict:
             "sfe_fetch_ms_p50": stats["sfe_fetch_ms_p50"],
             "sfe_concat_ms_p50": stats["sfe_concat_ms_p50"],
             "kernel": kernel.__name__, "kernel_launches": kernel.launches,
-            "kernel_launches_by_device": by_dev}
+            "kernel_launches_by_device": by_dev,
+            "huffman_pack_launches_by_device": pack_by_dev}
 
 
 def _md_second_card() -> dict:
@@ -4076,6 +4250,7 @@ def _harness_chaos(mode: str, devs) -> tuple:
     from 0 just before, read just after."""
     import torch
 
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
     from selkies_tpu_torch.tools.chaos_run import chaos_session
@@ -4092,6 +4267,7 @@ def _harness_chaos(mode: str, devs) -> tuple:
     launches = dct8_quant_zigzag.launches
     by_dev = {str(d): n for d, n in
               dct8_quant_zigzag.launches_by_device.items()}
+    packs = huffman_pack.launches
     wall = time.perf_counter() - t0
     name = f"chaos:{mode}"
     check(rep["alive"], f"{name}: not alive: {rep}")
@@ -4113,6 +4289,7 @@ def _harness_chaos(mode: str, devs) -> tuple:
             "width": W, "height": H, "fps": HARNESS_CHAOS_FPS,
             "devices": devs if mode == "sfe" else [DEVICE],
             "dct8_launches": launches, "dct8_launches_by_device": by_dev,
+            "huffman_pack_launches": packs,
             "reserved_mb_before": reserved0,
             "reserved_mb_after": _reserved_mb(), "seconds": wall,
             "report": rep}, (by_dev if mode == "sfe" else launches)
@@ -4122,6 +4299,7 @@ def _harness_swarm() -> tuple:
     """swarm_run with the port's real lane encoders on the card: the
     tier-1 smoke's storm with a sick slot. Checks tests/test_swarm.py's
     assertions; launches counted from 0 just before, read just after."""
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
     from selkies_tpu_torch.tools.swarm_run import swarm_run
 
@@ -4132,6 +4310,7 @@ def _harness_swarm() -> tuple:
                                 **HARNESS_SWARM))
     _sync([DEVICE])
     launches = dct8_quant_zigzag.launches
+    packs = huffman_pack.launches
     wall = time.perf_counter() - t0
     check(rep["swarm_clients"] >= HARNESS_SWARM["n_clients"],
           f"swarm: {rep['swarm_clients']} clients")
@@ -4150,7 +4329,8 @@ def _harness_swarm() -> tuple:
             "sessions_per_chip": rep["sessions_per_chip"],
             "fairness_jain_index": rep["fairness_jain_index"],
             "eviction_ms_p95": rep["eviction_ms_p95"],
-            "dct8_launches": launches, "reserved_mb_before": reserved0,
+            "dct8_launches": launches, "huffman_pack_launches": packs,
+            "reserved_mb_before": reserved0,
             "reserved_mb_after": _reserved_mb(), "seconds": wall,
             "report": rep}, launches
 
@@ -4177,6 +4357,9 @@ def phase_harnesses():
     emit(line)
     return {"phase": "harnesses", "gpu": CARD.get("name_power"),
             "parts": [ln["phase"] for ln in lines + [line]],
+            "huffman_pack_launches": {
+                ln["phase"].split("/", 1)[1]: ln["huffman_pack_launches"]
+                for ln in lines[1:] + [line]},
             "seconds": time.perf_counter() - t0}, launches
 
 
@@ -4715,6 +4898,7 @@ def run_phases() -> int:
     held (a failed check raises SystemExit)."""
     import torch
 
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
     from selkies_tpu_torch.ops.dct_quant import dct8_quant_zigzag
     from selkies_tpu_torch.ops.me_mc import me_mc_stripes
 
@@ -4722,10 +4906,19 @@ def run_phases() -> int:
     clock_hz = phase_setup()
     kern = phase_kernel_check()
     kern_me = phase_me_kernel_check(INT32_LANES * clock_hz)
+    _settle("huffman_pack")
+    kern_huff = phase_huffman_check()
+    packs = kern_huff["launches_by_path"]
+
+    def packs_since(path: str, n0: int) -> int:
+        """huffman_pack's launches on ``path`` (since the count n0)."""
+        packs[path] = huffman_pack.launches - n0
+        return packs[path]
 
     # the JPEG path: launch counts from 0 just before it, read just after
     _settle("encoder")
     dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    huffman_pack.launches = 0
     enc = phase_encoder()
     enc_launches = dct8_quant_zigzag.launches
     check(enc_launches == enc["frames_dispatched"],
@@ -4741,6 +4934,10 @@ def run_phases() -> int:
     kern["launches"] = launches
     check(launches > 0, "the JPEG path never launched dct8_quant_zigzag")
     check(me_mc_stripes.launches == 0, "the JPEG path launched me_mc")
+    # each device step packs its frame once: two launches per dct8 launch
+    check(packs_since("jpeg", 0) == 2 * launches,
+          f"the JPEG path: {packs['jpeg']} huffman_pack launches for "
+          f"{launches} dct8 launches (two per frame expected)")
 
     # the H.264 path: counts from 0 just before it, read just after
     _settle("h264_encoder")
@@ -4803,7 +5000,12 @@ def run_phases() -> int:
     # JPEG fed with frames made on the card: counts from 0 just before
     _settle("jpeg_device_frames")
     dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    p0 = huffman_pack.launches
     jpeg_dev, dev_launches = phase_jpeg_device_frames()
+    check(packs_since("jpeg/device_frames (host and device frames)", p0)
+          == 2 * dct8_quant_zigzag.launches,
+          f"jpeg device frames: {huffman_pack.launches - p0} huffman_pack "
+          f"launches for {dct8_quant_zigzag.launches} frames")
     check(dev_launches == 2 * (N_FRAMES + 1) and me_mc_stripes.launches == 0,
           f"jpeg device frames: {dev_launches} dct8 launches for "
           f"{2 * (N_FRAMES + 1)} frames")
@@ -4817,7 +5019,10 @@ def run_phases() -> int:
             ("jpeg", dct8_quant_zigzag, me_mc_stripes, "frames_dispatched")):
         _settle(f"host_rung/{profile}")
         dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+        p0 = huffman_pack.launches
         out, runs = phase_host_rung(profile)
+        check(packs_since(f"{profile}/host", p0) == 0,
+              f"the {profile} host rung launched huffman_pack")
         launches = kernel.launches
         check(launches == out[expect] and other.launches == 0,
               f"{profile} host rung: {launches} launches for "
@@ -4832,7 +5037,9 @@ def run_phases() -> int:
     # before the phase, read by rung while it runs
     _settle("server_faults")
     dct8_quant_zigzag.launches = me_mc_stripes.launches = 0
+    p0 = huffman_pack.launches
     faults, by_rung = phase_server_faults()
+    packs_since("x264enc-striped/ladder (phase)", p0)
     for rung in ("device", "host"):
         kern_me["launches_by_path"][f"x264enc-striped/ladder:{rung}"] = \
             by_rung[rung]["me_mc"]
@@ -4846,6 +5053,10 @@ def run_phases() -> int:
     for path, n in mesh_launches.items():
         (kern if path.startswith("mesh:jpeg/") else kern_me)[
             "launches_by_path"][path] = n
+    for lane in mesh["lanes"]:
+        if lane["profile"] == "jpeg":
+            packs[f"mesh:jpeg/N{lane['sessions']}"] = \
+                lane["huffman_pack_launches"]
     _settle("server_mesh")
     dct8_quant_zigzag.launches = 0
     server_mesh = phase_server_mesh()
@@ -4861,17 +5072,26 @@ def run_phases() -> int:
     for path, by_dev in multi_launches.items():
         (kern if path.startswith("multi:jpeg/") else kern_me)[
             "launches_by_path"][path] = by_dev
+    for r in multi["lanes"] + multi["sfe"]:
+        if r["profile"] == "jpeg":
+            path = ("multi:jpeg/session:2" if "tpu_mesh" not in r
+                    else f"multi:jpeg/sfe:{MD_SFE_MESH} (server)")
+            packs[path] = r["huffman_pack_launches_by_device"]
 
     # resize: each step's counts from 0 just before its r, read just after
     _settle("server_resize")
+    p0 = huffman_pack.launches
     server_resize, resize_launches = phase_server_resize()
+    packs_since("resize (phase)", p0)
     emit(server_resize)
     for path, n in resize_launches.items():
         (kern if path.startswith("resize:jpeg/") else kern_me)[
             "launches_by_path"][path] = n
     # the wire edge: counts from 0 just before the phase
     _settle("server_edge")
+    p0 = huffman_pack.launches
     server_edge = phase_server_edge()
+    packs_since("edge:jpeg (server)", p0)
     emit(server_edge)
     kern["launches_by_path"]["edge:jpeg (server)"] = \
         server_edge["dct8_launches"]
@@ -4892,6 +5112,7 @@ def run_phases() -> int:
     # after (chaos:<mode>, swarm:real)
     _settle("harnesses")
     harnesses, harness_launches = phase_harnesses()
+    packs.update(harnesses["huffman_pack_launches"])
     emit(harnesses)
     kern["launches_by_path"].update(harness_launches)
     enc.update(phase_small_reference())
@@ -4907,12 +5128,14 @@ def run_phases() -> int:
     # from 0 just before each path, read just after. Last: its profiler
     # request must not overlap the timing phases' profiler windows
     _settle("server_trace")
+    p0 = huffman_pack.launches
     server_trace, trace_launches = phase_server_trace()
+    packs_since("server_trace (phase)", p0)
     for path, n in trace_launches.items():
         (kern if path.startswith("trace:jpeg") else kern_me)[
             "launches_by_path"][path] = n
 
-    emit({"kernels": [kern, kern_me]})
+    emit({"kernels": [kern, kern_me, kern_huff]})
     emit(enc)
     emit(h264)
     emit(h264_full)

@@ -1,16 +1,26 @@
-"""Device-side baseline-JPEG Huffman packing as PyTorch tensor code.
+"""Device-side baseline-JPEG Huffman packing: the Hopper kernel and its
+plain PyTorch version.
 
-Counterpart of ``selkies_tpu/encoder/device_entropy.py``. The JAX packer is
-XLA, not Pallas; here it stays tensor code (a hand-written pack kernel is
-later work). It is written in PyTorch's idiom — integer gathers, ``cumsum``,
-``cummax``, ``scatter_add``/``scatter_reduce`` — where the TPU version had
-to avoid gathers with one-hot matmuls, and it computes the magnitude
-category with integer ops (``bucketize`` against powers of two) instead of
-``floor(log2(.))``, which the card does not promise to round exactly.
+Counterpart of ``selkies_tpu/encoder/device_entropy.py``, whose packer is
+XLA tensor code, not Pallas: no TPU kernel stands behind it. On the card
+:meth:`DeviceEntropyPacker.pack` launches ``csrc/huffman_pack.cu`` (CUDA
+C++ for sm_90a, built by nvcc at first use and bound with ctypes; its
+source says what bounds it and how its design follows): two launches a
+call, counted in ``huffman_pack.launches`` and by device in
+``huffman_pack.launches_by_device``. CPU tensors take the plain version,
+:meth:`DeviceEntropyPacker.pack_plain`; a CUDA tensor launches the kernel
+or raises, with no fallback from one to the other.
 
-Its output is bit-exact with the JAX packer — the same ``(words, nbytes,
-base, overflow)``, overflowed stripes' words included — because it keeps
-the same data-parallel formulation:
+The plain version is PyTorch tensor code in PyTorch's idiom — integer
+gathers, ``cumsum``, ``cummax``, ``scatter_add``/``scatter_reduce`` —
+where the TPU version had to avoid gathers with one-hot matmuls, and it
+computes the magnitude category with integer ops (``bucketize`` against
+powers of two) instead of ``floor(log2(.))``, which the card does not
+promise to round exactly.
+
+The plain version's output is bit-exact with the JAX packer — the same
+``(words, nbytes, base, overflow)``, overflowed stripes' words included —
+because it keeps the same data-parallel formulation:
 
   1. symbols live in a [M, 192] per-block slot grid (DC code, DC bits, and
      per-AC-coefficient {ZRL-pair, ZRL+code, value-bits} triples);
@@ -27,6 +37,8 @@ the same data-parallel formulation:
 All uint32 arithmetic of the reference runs here in int64 and is masked to
 32 bits where the reference would wrap; the packed words are returned as
 int32 holding the same bit patterns (view them as uint32 on the host).
+The kernel's output equals the plain version's except inside the word
+span of a flagged stripe (its words are 0 there).
 
 Overflow containment: a block whose bitstream exceeds ``32*block_words``
 bits, or a stripe exceeding ``max_stripe_bytes``, flags its stripe; flagged
@@ -36,6 +48,7 @@ stripes are host-coded by the caller (encoder/jpeg.py
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
@@ -148,6 +161,14 @@ def _packed_tables() -> Tuple[np.ndarray, ...]:
     return dc_code, dc_len, ac_code, ac_len
 
 
+def _kernel_tables() -> np.ndarray:
+    """The kernel's table: ``(len << 16) | code`` of DC luma (0..11), DC
+    chroma (12..23), AC luma (24..279) and AC chroma (280..535) symbols."""
+    dc_code, dc_len, ac_code, ac_len = _packed_tables()
+    return np.concatenate([(dc_len << 16) | dc_code,
+                           (ac_len << 16) | ac_code]).astype(np.int32)
+
+
 class DeviceEntropyPacker:
     """Per-geometry entropy pack on a device: coefficients → packed scans.
 
@@ -185,6 +206,7 @@ class DeviceEntropyPacker:
         dev = resolve_device(device)
         self.device = dev
         perm, is_chroma, dc_prev, bps = scan_geometry(pad_h, pad_w, stripe_h)
+        self.pad_w, self.stripe_h = pad_w, stripe_h
         self.n_stripes = pad_h // stripe_h
         self.sessions = int(sessions)
         if self.n_stripes % self.sessions:
@@ -207,8 +229,20 @@ class DeviceEntropyPacker:
         self._tables = tuple(torch.from_numpy(t).to(dev)
                              for t in _packed_tables())
         self._pow2 = torch.from_numpy(_POW2).to(dev)
+        #: the kernel's (len << 16) | code table (csrc/huffman_pack.cu)
+        self._kernel_tables = torch.from_numpy(_kernel_tables()).to(dev)
 
     def pack(self, yq: torch.Tensor, cbq: torch.Tensor, crq: torch.Tensor):
+        """The packed scans of zigzag planes ``yq`` [S*stripe_h/8,
+        pad_w/8, 64], ``cbq``/``crq`` [S*stripe_h/16, pad_w/16, 64]:
+        :func:`huffman_pack` (the kernel on the card, the plain version on
+        the CPU)."""
+        return huffman_pack(self, yq, cbq, crq)
+
+    def pack_plain(self, yq: torch.Tensor, cbq: torch.Tensor,
+                   crq: torch.Tensor):
+        """The plain version of :meth:`pack`, on any device: the JAX
+        packer's formulation, bit-exact with it."""
         S = self.n_stripes
         V = self.max_stripe_words
         W = self.block_words
@@ -405,6 +439,128 @@ class DeviceEntropyPacker:
         while n < total_words:
             n <<= 1
         return min(n, self.cap_words)
+
+
+class _PackArgs(ctypes.Structure):
+    """``struct PackArgs`` of csrc/huffman_pack.cu."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "yq", "cbq", "crq", "tables", "blk_bits", "partial", "words",
+        "nbytes", "base_words", "overflow")] + [
+        (name, ctypes.c_int) for name in (
+            "n_stripes", "sessions", "bps", "mcols", "yrows", "crows", "bx",
+            "cbx", "stripe_words", "block_bits", "cap_words")]
+
+
+#: threads of a CTA of the kernel's count launch (kThreads)
+_COUNT_THREADS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    from .._build import load_library
+
+    fn = load_library("huffman_pack").huffman_pack_launch
+    fn.argtypes = [ctypes.POINTER(_PackArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_planes(p: DeviceEntropyPacker, yq, cbq, crq) -> None:
+    """The kernel takes the planes as ``dct8_quant_zigzag`` leaves them:
+    int16, contiguous, 16-byte aligned, on one device, of the packer's
+    geometry."""
+    S, bx, cbx = p.n_stripes, p.pad_w // 8, p.pad_w // 16
+    want = {"yq": (S * p.stripe_h // 8, bx, 64),
+            "cbq": (S * p.stripe_h // 16, cbx, 64),
+            "crq": (S * p.stripe_h // 16, cbx, 64)}
+    for name, t in (("yq", yq), ("cbq", cbq), ("crq", crq)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {list(want[name])}, got "
+                             f"{list(t.shape)}")
+        if t.dtype != torch.int16:
+            raise TypeError(f"{name} must be int16, got {t.dtype}")
+        if t.device != yq.device:
+            raise ValueError(f"{name} is on {t.device}, yq on {yq.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _pack_args(p: DeviceEntropyPacker, yq, cbq, crq, out) -> _PackArgs:
+    """The kernel's arguments for one call (``out``: the outputs and
+    scratch tensors, as :func:`huffman_pack` allocates them)."""
+    words, nbytes, base, ovf, blk_bits, partial = out
+    a = _PackArgs()
+    (a.yq, a.cbq, a.crq, a.tables, a.blk_bits, a.partial, a.words, a.nbytes,
+     a.base_words, a.overflow) = (t.data_ptr() for t in (
+         yq, cbq, crq, p._kernel_tables, blk_bits, partial, words, nbytes,
+         base, ovf))
+    a.n_stripes, a.sessions = p.n_stripes, p.sessions
+    a.bps, a.mcols = p.blocks_per_stripe, p.pad_w // 16
+    a.yrows, a.crows = p.stripe_h // 8, p.stripe_h // 16
+    a.bx, a.cbx = p.pad_w // 8, p.pad_w // 16
+    a.stripe_words, a.block_bits = p.max_stripe_words, 32 * p.block_words
+    a.cap_words = p.cap_words
+    return a
+
+
+def _pack_outputs(p: DeviceEntropyPacker, dev):
+    """Outputs and scratch of one call: words [B, cap_words] i32, nbytes
+    and base_words [S] i64, overflow [S] bool; block bit counts [S*bps] and
+    the count launch's partial sums [S*gx] i32. The kernel writes every
+    element, so none is zeroed here."""
+    S, bps = p.n_stripes, p.blocks_per_stripe
+    gx = -(-bps // _COUNT_THREADS)
+    return (torch.empty((p.sessions, p.cap_words), dtype=torch.int32,
+                        device=dev),
+            torch.empty(S, dtype=torch.int64, device=dev),
+            torch.empty(S, dtype=torch.int64, device=dev),
+            torch.empty(S, dtype=torch.bool, device=dev),
+            torch.empty(S * bps, dtype=torch.int32, device=dev),
+            torch.empty(S * gx, dtype=torch.int32, device=dev))
+
+
+def huffman_pack(packer: DeviceEntropyPacker, yq: torch.Tensor,
+                 cbq: torch.Tensor, crq: torch.Tensor):
+    """``packer``'s ``(words, nbytes, base_words, overflow)`` of the zigzag
+    planes. CPU tensors go through :meth:`DeviceEntropyPacker.pack_plain`;
+    CUDA tensors launch ``csrc/huffman_pack.cu`` twice (count, emit) on the
+    planes' device's current stream, or raise. The outputs equal the plain
+    version's, except that a flagged stripe's words are 0."""
+    dev = yq.device
+    if dev.type == "cpu":
+        return packer.pack_plain(yq, cbq, crq)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    _check_planes(packer, yq, cbq, crq)
+    if packer._kernel_tables.device != dev:
+        raise ValueError(f"the packer's tables are on "
+                         f"{packer._kernel_tables.device}, the planes on {dev}")
+    major, minor = torch.cuda.get_device_capability(dev)
+    if (major, minor) != (9, 0):
+        raise RuntimeError(f"huffman_pack.cu is built for sm_90a; device "
+                           f"{dev} is sm_{major}{minor}")
+    fn = _library()
+    # the launch goes to the current device's context: make the planes'
+    # device current, whichever device the caller had current
+    with torch.cuda.device(dev):
+        out = _pack_outputs(packer, dev)
+        args = _pack_args(packer, yq, cbq, crq, out)
+        err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"huffman_pack launch failed on {dev}: "
+                           f"CUDA error {err}")
+    huffman_pack.launches += 2
+    by_dev = huffman_pack.launches_by_device
+    by_dev[str(dev)] = by_dev.get(str(dev), 0) + 2
+    words, nbytes, base, ovf = out[:4]
+    return (words[0] if packer.sessions == 1 else words), nbytes, base, ovf
+
+
+#: kernel launches since the last reset, two a call (plain-version calls
+#: do not count), in total and by device ("cuda:0": n)
+huffman_pack.launches = 0
+huffman_pack.launches_by_device = {}
 
 
 def stuff_bytes(scan: bytes) -> bytes:

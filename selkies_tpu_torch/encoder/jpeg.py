@@ -40,11 +40,19 @@ from .jfif import EOI, jfif_headers
 from .jpeg_tables import std_tables
 from .staging import StagingRing
 
-#: device packer geometry of the streaming step (selkies_tpu/encoder/jpeg.py
-#: :123): 16 words (512 bits) per block and 16 KB per stripe; beyond either
-#: budget the stripe is flagged and host-coded, bit-exact either way
+#: device packer's block budget in the streaming step (selkies_tpu/encoder/
+#: jpeg.py:123): 16 words (512 bits); a block beyond it, or a stripe beyond
+#: :func:`max_stripe_bytes`, is flagged and host-coded, bit-exact either way
 BLOCK_WORDS = 16
-MAX_STRIPE_BYTES = 1 << 14
+
+
+def max_stripe_bytes(stripe_h: int, pad_w: int) -> int:
+    """The device packer's byte budget of a ``stripe_h`` x ``pad_w`` stripe:
+    4 bits a pixel (a 1920x64 stripe 61,440 B; dense text codes to ~1.5 at
+    q40), never below the JAX package's fixed 16 KB, so a small geometry
+    keeps its budget and its host-coded stripes, and at most 128 KB less a
+    word: the plain packer indexes a stripe's words in 15 bits."""
+    return min(max(1 << 14, stripe_h * pad_w // 2), (1 << 17) - 4)
 
 META_WORDS_PER_STRIPE = 4  # nbytes, base_words, overflow, damage
 
@@ -136,7 +144,8 @@ class DeviceStep:
         self.n_stripes = pad_h // stripe_h
         self.packer = DeviceEntropyPacker(
             pad_h, pad_w, stripe_h, block_words=BLOCK_WORDS,
-            max_stripe_bytes=MAX_STRIPE_BYTES, device=device)
+            max_stripe_bytes=max_stripe_bytes(stripe_h, pad_w),
+            device=device)
 
     def __call__(self, frame, prev, recip_y, recip_c, qsel,
                  wm_scaled=None, alpha_inv=None):

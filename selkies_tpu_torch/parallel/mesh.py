@@ -40,10 +40,11 @@ from ..encoder.staging import HostCopy, SlotUploads
 #: in-flight window (2) plus the tick being built
 UPLOAD_DEPTH = 3
 
-#: sessions per Huffman packer call of the JPEG lane: the packer's slot
-#: grids grow with the stripes packed at once (about 1.5 GB per 1080p
-#: session), so a lane packs in chunks of this many sessions, as the
-#: H.264 lane does per ``h264_device.PACK_FRAMES``
+#: sessions per Huffman packer call of the JPEG lane on the CPU: the plain
+#: packer's slot grids grow with the stripes packed at once (about 1.5 GB
+#: per 1080p session), so it packs in chunks of this many sessions, as the
+#: H.264 lane does per ``h264_device.PACK_FRAMES``; on the card the kernel
+#: holds no such grid, and one call packs every session of a shard
 PACK_SESSIONS = 4
 
 
@@ -309,18 +310,20 @@ def make_batched_entropy_step(mesh: Mesh, pad_h: int, pad_w: int,
     "stripe") are the sum of its bands' counts: the lane sums the heads on
     the host after the fetch, so nothing crosses devices.
     meta = (s_local, mw, cap_words, packer) of a band. One DCT+quant
-    launch per shard; the Huffman pack runs over every ``PACK_SESSIONS``
-    sessions' stripes (each session compacts on its own, so the chunking
-    changes no byte)."""
+    launch per shard; the Huffman pack is one kernel call per shard on the
+    card, and on the CPU runs over every ``PACK_SESSIONS`` sessions'
+    stripes (each session compacts on its own, so the chunking changes no
+    byte)."""
     from ..encoder.device_entropy import DeviceEntropyPacker
-    from ..encoder.jpeg import (BLOCK_WORDS, MAX_STRIPE_BYTES,
-                                encode_body_sessions)
+    from ..encoder.jpeg import (BLOCK_WORDS, encode_body_sessions,
+                                max_stripe_bytes)
 
     shards = mesh_shards(mesh, n_sessions, pad_h, stripe_h)
     h_local = shards[0].height
     nl = shards[0].n_sessions
     s = h_local // stripe_h
-    chunk = min(nl, PACK_SESSIONS)
+    chunk = nl if shards[0].device.type == "cuda" \
+        else min(nl, PACK_SESSIONS)
     # per device, one packer per chunk size: full chunks and the remainder
     packers: Dict[Tuple[torch.device, int], Any] = {}
     for sh in shards:
@@ -330,7 +333,7 @@ def make_batched_entropy_step(mesh: Mesh, pad_h: int, pad_w: int,
                     packers[(sh.device, c)] = DeviceEntropyPacker(
                         c * h_local, pad_w, stripe_h,
                         block_words=BLOCK_WORDS,
-                        max_stripe_bytes=MAX_STRIPE_BYTES,
+                        max_stripe_bytes=max_stripe_bytes(stripe_h, pad_w),
                         device=sh.device, sessions=c)
     mw = 4 * s
     yr, cr = h_local // 8, h_local // 16        # block rows per session

@@ -1244,3 +1244,145 @@ def test_lane_device_interval_covers_every_shard(cuda_device, codec):
         assert t_begin - 5e-5 <= t0 <= t1, (t0 - t_begin, t1 - t0)
         assert -5e-5 <= t_seen - t1 <= 5e-4, (t_seen - t1)
         time.sleep(0.003)
+
+
+# ---------------------------------------------------------------------------
+# the Huffman pack kernel (csrc/huffman_pack.cu) against its plain version
+
+
+def _zigzag_planes(frames, dev, q=40, pq=90, qsel=None, sh=64):
+    """The lane step's coefficient planes of ``frames`` (N host frames of
+    one padded geometry, folded into the rows) on ``dev``, with the
+    table of each (session, stripe) from ``qsel`` (0: q, 1: pq)."""
+    from selkies_tpu_torch.encoder.jpeg import encode_body
+
+    n, h, w, _ = np.shape(frames)
+    f = torch.from_numpy(np.ascontiguousarray(frames)).to(dev) \
+        .reshape(n * h, w, 3)
+    qy, qc = quality_scaled_tables(q)
+    py, pc = quality_scaled_tables(pq)
+    ry = torch.from_numpy(_recip(np.stack([qy, py]))).to(dev)
+    rc = torch.from_numpy(_recip(np.stack([qc, pc]))).to(dev)
+    if qsel is None:
+        qsel = np.zeros(n * h // sh, np.int32)
+    yq, cbq, crq, _, _ = encode_body(
+        f, torch.zeros_like(f), ry, rc,
+        torch.from_numpy(np.asarray(qsel, np.int32)).to(dev), stripe_h=sh)
+    return yq, cbq, crq
+
+
+def _pack_check(planes, n, pad_h, pad_w, sh=64, block_words=None,
+                msb=None):
+    """The kernel's pack of ``planes`` against the plain version's on the
+    same card tensors: nbytes, base_words and overflow equal everywhere,
+    words equal outside the flagged stripes' spans (where the kernel
+    leaves 0s), two launches. Returns the plain version's outputs."""
+    from selkies_tpu_torch.encoder.device_entropy import (DeviceEntropyPacker,
+                                                          huffman_pack)
+    from selkies_tpu_torch.encoder.jpeg import BLOCK_WORDS, max_stripe_bytes
+
+    p = DeviceEntropyPacker(
+        n * pad_h, pad_w, sh, device=planes[0].device, sessions=n,
+        block_words=BLOCK_WORDS if block_words is None else block_words,
+        max_stripe_bytes=max_stripe_bytes(sh, pad_w) if msb is None else msb)
+    before = huffman_pack.launches
+    got = p.pack(*planes)
+    torch.cuda.synchronize()
+    assert huffman_pack.launches == before + 2
+    want = p.pack_plain(*planes)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    gw = got[0].reshape(n, -1).cpu().numpy()
+    ww = want[0].reshape(n, -1).cpu().numpy()
+    nb, base, ovf = (t.cpu().numpy() for t in want[1:])
+    keep = np.ones(gw.shape, bool)
+    fs = p.n_stripes // n
+    for s in np.flatnonzero(ovf):
+        span = slice(base[s], base[s] + min(-(-nb[s] // 4),
+                                            p.max_stripe_words))
+        assert not gw[s // fs, span].any()
+        keep[s // fs, span] = False
+    assert np.array_equal(gw[keep], ww[keep])
+    return want
+
+
+def _pattern_frames(content, n, k=5, seed=3600000001):
+    """Frame ``k`` of ``n`` seeded sessions of the benchmark's content
+    patterns at 1920x1080, edge-padded to 1088 rows as the encoders pad."""
+    from streambench.source import Pattern
+
+    return np.stack([np.pad(Pattern(1920, 1080, seed + i, content).frame(k),
+                            ((0, 8), (0, 0), (0, 0)), mode="edge")
+                     for i in range(n)])
+
+
+@pytest.mark.parametrize("content", ["text", "scroll"])
+@pytest.mark.parametrize("n", [4, 8])
+def test_huffman_pack_kernel_equals_plain_at_the_lane_shapes(cuda_device, n,
+                                                             content):
+    """The lane's tick at 1080p, q40: N sessions' stripes in one call.
+    Nothing is flagged at the 61,440-byte budget, so every word is equal."""
+    planes = _zigzag_planes(_pattern_frames(content, n), cuda_device)
+    want = _pack_check(planes, n, 1088, 1920)
+    assert not want[3].any()
+    if content == "text":                 # what the 16 KB budget flagged
+        assert (want[1] > 1 << 14).sum().item() >= 8 * n
+
+
+#: tests/test_torch_device_entropy.py's cases (kind, seed, q, pq, qsel,
+#: block_words, max_stripe_bytes) at its 256x128 geometry
+PACK_CASES = [
+    ("desktop", 0, 40, 90, (0, 0), 16, 1 << 14),
+    ("desktop", 1, 40, 90, (1, 1), 56, 1 << 15),
+    ("motion", 2, 75, 90, (0, 1), 16, 1 << 14),
+    ("noise", 3, 40, 90, (0, 0), 16, 1 << 14),
+    ("noise", 4, 40, 100, (1, 1), 16, 1 << 14),     # block overflow
+    ("noise", 5, 40, 90, (0, 1), 56, 1 << 10),      # stripe overflow
+]
+
+
+@pytest.mark.parametrize("kind,seed,q,pq,qsel,bw,msb", PACK_CASES)
+def test_huffman_pack_kernel_equals_plain_on_the_packer_cases(
+        cuda_device, kind, seed, q, pq, qsel, bw, msb):
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        f = rng.integers(0, 256, (128, 256, 3), dtype=np.uint8)
+        f[:64] = rng.integers(0, 256, 3, dtype=np.uint8)
+    else:
+        f = SyntheticSource(256, 128, pattern=kind, seed=seed).next_frame()
+    planes = _zigzag_planes(f[None], cuda_device, q, pq, qsel)
+    want = _pack_check(planes, 1, 128, 256, block_words=bw, msb=msb)
+    if seed in (4, 5):
+        assert want[3].cpu().tolist() == [False, True]
+
+
+def test_huffman_pack_kernel_equals_plain_on_a_paint_over_text_frame(
+        cuda_device):
+    """Two text sessions coded at the paint-over quality (q90) on every
+    stripe: the densest stripes the lanes code."""
+    frames = _pattern_frames("text", 2, k=40, seed=3600000101)
+    planes = _zigzag_planes(frames, cuda_device, qsel=np.ones(34, np.int32))
+    _pack_check(planes, 2, 1088, 1920)
+
+
+def test_text_lane_on_card_codes_every_stripe_on_the_card(cuda_device):
+    """A lane of 8 text sessions at 1080p: its stripes on the card equal
+    the same lane's on the CPU, tick by tick, and none is coded on the
+    host; one pack call (two launches) per tick."""
+    from selkies_tpu_torch.encoder.device_entropy import huffman_pack
+    from selkies_tpu_torch.parallel.mesh import MeshStripeEncoder, Mesh
+
+    ticks = [_pattern_frames("text", 8, k=k)[:, :1080] for k in (5, 6)]
+    lanes = [MeshStripeEncoder(Mesh([[torch.device(d)]]), 8, 1920, 1080)
+             for d in ("cpu", cuda_device)]
+    l0 = huffman_pack.launches
+    for k, frames in enumerate(ticks):
+        want, got = (lane.encode_frames(frames) for lane in lanes)
+        assert _lane_bytes(got[0]) == _lane_bytes(want[0]), k
+        assert list(got[1]) == list(want[1]), k
+        assert all(len(s) == 17 for s in got[0])
+    assert huffman_pack.launches - l0 == 2 * len(ticks)
+    assert lanes[1].host_fallback_stripes_total == 0
+    assert lanes[0].host_fallback_stripes_total == 0
